@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Dynamic-growth benchmark: the reference's headline reconfigure story.
 
-Reproduces the tutorial narrative (/root/reference/README.md:130-140) at TPU
-scale (BASELINE.md "dynamic growth" config): build an index on clustered
+Reproduces the tutorial narrative (/root/reference/README.md:130-140) at
+device scale (BASELINE.md "dynamic growth" config): build an index on clustered
 data, add a large batch FROM A SHIFTED DISTRIBUTION (new clusters) with
 posting-list updates — the coarse centers go stale: new vectors pile into
 whichever old lists are nearest, so probing the same budget covers the new
@@ -10,7 +10,7 @@ regions poorly — then `reconfigure()` and measure again.
 
 Reports device-resident IVF latency (fori-loop differencing, dispatch
 cancels) and recall@10 of queries drawn from the NEW distribution, vs the
-exact-ADC linear scan. Writes markdown to stdout (redirect into GROWTH.md).
+exact-ADC linear scan. Writes markdown to stdout.
 
 Env: BENCH_N initial size (default 1M on accelerator), BENCH_ADD added size
 (default = BENCH_N), BENCH_Q (default 64).
@@ -81,7 +81,6 @@ def main():
             return float("nan")
         wv = e._probe_width_virtual(L, None, dc)
         rt = e.topk_recall
-        use_pallas = e._use_pallas_scan()
         Qn = queries.shape[0]
 
         @jax.jit
@@ -90,8 +89,7 @@ def main():
                 dd, _ = ivf_union_scan_topk(
                     qb + acc * 1e-30, dec_g, nrm_g, ord_g, cdec, cnrm,
                     w=wv, topk=topk, cap_u=dc["cap_v"],
-                    nlist_pad=dc["nlist_v_pad"], recall_target=rt,
-                    use_pallas=use_pallas)
+                    nlist_pad=dc["nlist_v_pad"], recall_target=rt)
                 return dd[0, 0]
             return lax.fori_loop(0, reps, body, jnp.float32(0.0))
 

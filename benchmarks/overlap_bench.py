@@ -3,8 +3,8 @@
 
 The chunked sharded scan issues each chunk's stage-1 all-gather as soon as
 that chunk's scan finishes; the gather has no dependency on the next chunk's
-scan, so XLA's latency-hiding scheduler can overlap them (on real ICI the
-collective hides behind compute; on the CPU mesh collectives are memcpys, so
+scan, so XLA's latency-hiding scheduler can overlap them (on a real
+interconnect the collective hides behind compute; on the CPU mesh collectives are memcpys, so
 the measurable claims here are (a) identical results and (b) no chunking
 overhead — the overlap itself shows as the absence of a slowdown while the
 collective count goes 1 -> nchunks).

@@ -12,13 +12,10 @@ for full-database and subset (target_ids) queries. Reports recall@1/@10
 against exact f32 ground truth and the ADC distance-dominance rate (the
 provable superset property: engine's i-th distance <= oracle's i-th).
 
-Round-4 scope (VERDICT item 2): every SHIPPING tier goes through the study
-— default bf16 windows (fused subset penalty stream), int8 windows, uint8
-pq windows — plus a probe A/B (approx_max_k probe selection vs exact
+Every shipping tier goes through the study — default bf16 windows and
+uint8 pq windows — plus a probe A/B (approx_max_k probe selection vs exact
 lax.top_k probes, Rii.probe_recall) quantifying the missed-probe failure
-class (round-3 ADVICE). Latency columns are dispatch-inclusive host wall
-time; device-resident kernel times for the same tiers live in
-benchmarks/ivf_modes.py output (both cited in RECALL_PARITY.md).
+class. Latency columns are dispatch-inclusive host wall time.
 
 Writes the markdown table to stdout; redirect into RECALL_PARITY.md to commit.
 
@@ -212,11 +209,10 @@ def main():
                 make_row(tag, "default", L, oracles[(subset, L)],
                          engine_run(subset, L))
 
-        # --- every shipping tier through the SAME oracle (VERDICT item 2):
-        # int8 windows (+ exact code rescore) and uint8 pq windows,
+        # --- every shipping tier through the SAME oracle: uint8 pq windows,
         # full+subset
         L_tier = Ls[2]
-        for tier in ("int8", "pq"):
+        for tier in ("pq",):
             set_tier(tier)
             for subset in (False, True):
                 tag = f"subset |S|={len(tids)}" if subset else f"full N={N}"

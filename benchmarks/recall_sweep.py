@@ -2,7 +2,7 @@
 """IVF tuning contract: recall vs (wv, L) at several batch sizes.
 
 The reference documents the L dial in prose (/root/reference/docs/source/
-tips.rst:11-37); this sweep produces the MEASURED equivalent for the TPU
+tips.rst:11-37); this sweep produces the MEASURED equivalent for this
 engine: for each candidate budget L, the derived virtual probe width wv
 (the w-formula, round(L*nlist_v/N)+3 pow2-bucketed), recall@r in the
 reference benchmark's sense (the true f32 NN ranks within the top r —

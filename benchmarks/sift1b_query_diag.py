@@ -1,11 +1,10 @@
 #!/usr/bin/env python
 """Stage-by-stage profile of query_batch at the SIFT1B config shape.
 
-bignlist_diag.py showed the pq union kernel costs 0.04 ms/batch at this
-shape, yet the engine measures ~58 ms/batch at Q=8: this script rebuilds
-the same engine (compile-cached) and times each layer — public
-query_batch, _query_ivf_batch, the raw kernel with the engine's own dc
-arrays, and the bare dispatch round-trip — to locate the fixed cost.
+Rebuilds the engine at this shape and times each layer — public
+query_batch, _query_ivf_batch, _query_linear_batch, and the raw pq union op
+with the engine's own device-cache arrays — to locate fixed costs between
+the op and the public entry point (ROADMAP S2b).
 
 Env: SHAPE_N (default 32M), SHAPE_NLIST (default 31623).
 """
@@ -85,17 +84,11 @@ def main():
             qd, dc["codes_g"], dc["norms_g"], dc["order_g"],
             dc["codewords"], dc["centers_dec_v"], dc["centers_norms_v"],
             w=wv, topk=10, cap_u=dc["cap_v"], nlist_pad=dc["nlist_v_pad"],
-            recall_target=rt, vlen=dc.get("vlen_g"),
-            cw_padded=dc.get("pallas_cw"), use_pallas=True)
+            recall_target=rt)
         np.asarray(d_)
 
     t = timed(kern)
-    log(f"raw pq union kernel:    {t*1e3:8.2f} ms (engine dc arrays)")
-
-    f = jax.jit(lambda a: a + 1.0)
-    np.asarray(f(jnp.zeros(8)))
-    t = timed(lambda: np.asarray(f(jnp.zeros(8))))
-    log(f"bare dispatch RTT:      {t*1e3:8.2f} ms")
+    log(f"raw pq union op:        {t*1e3:8.2f} ms (engine dc arrays)")
 
 
 if __name__ == "__main__":

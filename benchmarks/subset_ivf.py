@@ -1,12 +1,11 @@
 #!/usr/bin/env python
-"""Subset (target_ids) IVF on the fused window kernels vs the XLA union path
-vs the masked linear scan, across subset sizes — the round-3 headline item:
-the reference makes subsets first-class inside the IVF walk
-(/root/reference/src/rii.h:291-295); here the mask rides the Pallas window
-kernels as a per-slot 0/+inf penalty stream.
+"""Subset (target_ids) IVF against the masked linear scan, across subset
+sizes: the reference makes subsets first-class inside the IVF walk
+(/root/reference/src/rii.h:291-295); here the mask rides the union IVF as
++inf norms on the excluded slots.
 
-Timing uses the runtime-trip-count fori_loop differencing from bench.py
-(dispatch RTT cancels; see CLAUDE.md timing note). BENCH_N/BENCH_Q to shrink.
+Times are end to end through ``Rii.query_batch`` (median of 5 calls after a
+warm-up, host clock). BENCH_N/BENCH_Q to shrink.
 """
 
 import os
@@ -17,22 +16,31 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from micro_ivf import timed_loop  # noqa: E402
-
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
+def timed(e, queries, reps=5, **kw):
+    out = e.query_batch(queries, **kw)  # compile + warm
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = e.query_batch(queries, **kw)
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)), out
+
+
 def main():
     import jax
-    import jax.numpy as jnp
 
+    dev = jax.devices()[0]
     N = int(os.environ.get("BENCH_N", 1_000_000))
     Q = int(os.environ.get("BENCH_Q", 64))
     D, M, Ks = 128, 32, 256
     nlist = 1000 if N >= 500_000 else max(16, int(np.sqrt(N)))
     topk = 10
+    log(f"device={dev.platform}/{dev.device_kind} N={N} Q={Q}")
 
     rng = np.random.RandomState(123)
     X = rng.random((N, D)).astype(np.float32)
@@ -40,7 +48,6 @@ def main():
                + rng.normal(0, 0.01, (Q, D))).astype(np.float32)
 
     from rii_tpu import PQ, Rii
-    from rii_tpu.ops.ivf import ivf_union_scan_topk
 
     t0 = time.perf_counter()
     pq = PQ(M=M, Ks=Ks).fit(X[: min(N, 100_000)], iter=5)
@@ -48,10 +55,6 @@ def main():
     e.add_configure(X, nlist=nlist, iter=3)
     log(f"build: {time.perf_counter()-t0:.0f}s nlist={e.nlist} L0={e.L0}")
     dc = e._ensure_cache()
-    assert "decoded_g" in dc, dc.get("mode")
-    qd = jnp.asarray(queries)
-    rt = e.topk_recall
-    on_tpu = jax.default_backend() != "cpu"
 
     for s in (10_000, 100_000, 300_000):
         if s >= N:
@@ -62,69 +65,17 @@ def main():
         union_slots = min(Q * wv, dc["nlist_v"]) * dc["cap_v"]
         log(f"|S|={s} L={L} wv={wv} union_slots={union_slots} "
             f"(cap={dc['cap']})")
-
-        mask = np.zeros(dc["cap"], dtype=bool)
-        mask[tids] = True
-        tm = jnp.take(jnp.asarray(mask),
-                      jnp.clip(dc["order_g"], 0, dc["cap"] - 1))
-        tm = jax.device_put(tm)
-
-        # correctness: masked window kernel vs masked linear (both exact-ADC)
-        i_l, d_l = e._query_linear_batch(queries, topk, tids)
-        d_k, i_k = ivf_union_scan_topk(
-            qd, dc["decoded_g"], dc["norms_g"], dc["order_g"],
-            dc["centers_dec_v"], dc["centers_norms_v"], w=wv, topk=topk,
-            cap_u=dc["cap_v"], nlist_pad=dc["nlist_v_pad"], target_mask=tm,
-            recall_target=rt, use_pallas=on_tpu)
-        i_k = np.asarray(i_k)
-        ok_subset = all(set(r[r >= 0].tolist()) <= set(tids.tolist())
-                        for r in i_k)
+        t_i, (i_k, _) = timed(e, queries, topk=topk, L=L, target_ids=tids,
+                              method="ivf")
+        t_l, (i_l, _) = timed(e, queries, topk=topk, target_ids=tids,
+                              method="linear")
+        ok_subset = np.isin(i_k[i_k >= 0], tids).all()
         rec = np.mean([len(set(a.tolist()) & set(b.tolist())) / topk
                        for a, b in zip(i_l, i_k)])
         log(f"  subset-ivf vs subset-linear: recall@{topk}={rec:.4f} "
             f"members-only={ok_subset}")
-
-        def xla_once(acc, qd_, dec_g, nrm_g, ord_g, cdec, cnrm, tm_):
-            d, _ = ivf_union_scan_topk(
-                qd_ + acc * 1e-30, dec_g, nrm_g, ord_g, cdec, cnrm,
-                w=wv, topk=topk, cap_u=dc["cap_v"],
-                nlist_pad=dc["nlist_v_pad"], target_mask=tm_,
-                recall_target=rt)
-            return d[0, 0]
-
-        arrays = (qd, dc["decoded_g"], dc["norms_g"], dc["order_g"],
-                  dc["centers_dec_v"], dc["centers_norms_v"], tm)
-        dt = timed_loop(xla_once, arrays)
-        log(f"  union subset-ivf (xla):    {dt*1e3:.3f} ms/batch, "
-            f"{dt/Q*1e6:.2f} us/query")
-
-        if on_tpu:
-            def pallas_once(acc, qd_, dec_g, nrm_g, ord_g, cdec, cnrm, tm_):
-                d, _ = ivf_union_scan_topk(
-                    qd_ + acc * 1e-30, dec_g, nrm_g, ord_g, cdec, cnrm,
-                    w=wv, topk=topk, cap_u=dc["cap_v"],
-                    nlist_pad=dc["nlist_v_pad"], target_mask=tm_,
-                    recall_target=rt, use_pallas=True)
-                return d[0, 0]
-
-            dt = timed_loop(pallas_once, arrays)
-            log(f"  union subset-ivf (pallas): {dt*1e3:.3f} ms/batch, "
-                f"{dt/Q*1e6:.2f} us/query")
-
-        # the linear-scan alternative at this subset size (auto's other arm)
-        def linear_once(acc, qd_, dec_t, nr_m):
-            from rii_tpu.ops.pallas_scan import replica_scan_topk_t
-            d, _ = replica_scan_topk_t(qd_ + acc * 1e-30, dec_t, nr_m,
-                                       topk=topk, recall_target=rt)
-            return d[0, 0]
-
-        if "decoded_t" in dc:
-            norms_m = jnp.where(jnp.asarray(mask), dc["norms_flat"], jnp.inf)
-            nr_m = jnp.asarray(jnp.broadcast_to(norms_m[None, :],
-                                                (8, dc["cap"])))
-            dt = timed_loop(linear_once, (qd, dc["decoded_t"], nr_m))
-            log(f"  masked linear scan:        {dt*1e3:.3f} ms/batch, "
-                f"{dt/Q*1e6:.2f} us/query")
+        log(f"  ivf:    {t_i*1e3:.3f} ms/batch, {t_i/Q*1e6:.2f} us/query")
+        log(f"  linear: {t_l*1e3:.3f} ms/batch, {t_l/Q*1e6:.2f} us/query")
 
 
 if __name__ == "__main__":

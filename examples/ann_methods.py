@@ -6,7 +6,7 @@ inspired by ann-benchmarks). Each adapter exposes:
     train(vecs)            codebook / structure training
     add(vecs)              database ingestion
     search(q, topk) -> ids single query
-    search_batch(Xq, topk) -> (Nq, topk) ids   [TPU-native extension: the
+    search_batch(Xq, topk) -> (Nq, topk) ids   [batched extension: the
                             engine's throughput comes from batched dispatch]
 
 Competitor libraries (faiss / annoy / falconn / nmslib) are optional pip

@@ -15,7 +15,7 @@ Usage:
         [--n 1000000] [--nq 1000] [--r 1] [--per-query]
 
 --per-query times the reference's one-query-at-a-time loop; the default
-times the TPU-native batched dispatch (both report sec/query).
+times the batched dispatch (both report sec/query).
 """
 
 import argparse

@@ -1,6 +1,6 @@
 """Continuous-batching serving demo: concurrent clients against a QueryServer.
 
-Shows the throughput effect of request coalescing on TPU: many independent
+Shows the throughput effect of request coalescing on the device: many independent
 single-query submitters are served at batched-scan throughput.
 """
 

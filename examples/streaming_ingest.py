@@ -33,9 +33,8 @@ def main():
     d = 128
     rng = np.random.RandomState(0)
     # +1 row for the warm-up add, so every streamed batch keeps the SAME
-    # shape (each distinct batch shape compiles its own scatter variants —
-    # a one-off 9,999-row tail batch measured 12.8 s vs the 350 ms steady
-    # state, purely remote-compile time)
+    # shape (each distinct batch shape compiles its own scatter variants,
+    # and a one-off tail batch would pay those compiles)
     X = rng.random((n0 + n_batches * batch + 1, d)).astype(np.float32)
 
     print(f"building index (N={n0}) ...", flush=True)

@@ -1,51 +1,56 @@
-"""rii-tpu: a TPU-native reconfigurable inverted index (IVFADC / PQ) search framework.
+"""rii-tpu: a reconfigurable inverted index (IVFADC / PQ) search framework in JAX.
 
-Built from scratch for TPU (JAX / XLA / Pallas / pjit). Capability parity target is
-matsui528/rii (reference: /root/reference/rii/rii.py, /root/reference/src/rii.h), but the
-architecture is TPU-first:
+Capability parity target is matsui528/rii (reference: /root/reference/rii/rii.py,
+/root/reference/src/rii.h); the accelerator is an NVIDIA GPU (H100), and
+everything also runs on the CPU:
 
-- PQ/OPQ codebook training, encoding and PQk-means clustering are batched JAX programs
-  that run on the MXU (see ``rii_tpu.models``).
+- PQ/OPQ codebook training, encoding and PQk-means clustering are batched JAX
+  programs (see ``rii_tpu.models``).
 - The ADC query path exploits the identity ``ADC(q, code) == ||q - decode(code)||^2``:
   uint8 PQ codes are the *storage* format, while all distance kernels operate in the
-  decoded domain as large matmuls (see ``rii_tpu.ops``). The hot scan is a Pallas kernel
-  that streams codes from HBM, decodes blocks in VMEM via one-hot matmuls, and keeps a
-  running per-query top-k.
-- Multi-chip scaling shards codes/postings row-wise over a ``jax.sharding.Mesh`` and
+  decoded domain as large matmuls (see ``rii_tpu.ops``). On the GPU the linear scan
+  over the decoded bf16 replica is a fused Pallas (Triton) kernel that keeps the
+  scores in registers; everything else is plain XLA.
+- Multi-device scaling shards codes/postings row-wise over a ``jax.sharding.Mesh`` and
   merges per-shard top-k with all-gather collectives (see ``rii_tpu.parallel``).
 """
 
 import os as _os
 
+# the persistent compile cache's fixed home inside the checkout (.gitignore)
+COMPILE_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
+
+
+def _compile_cache_dir(environ, platforms):
+    """Directory the persistent compile cache goes to, or None for none.
+
+    JAX_COMPILATION_CACHE_DIR, when set, wins and JAX reads it itself (None:
+    no directory is set in code); otherwise COMPILE_CACHE_DIR. None too when
+    RII_TPU_NO_COMPILE_CACHE is set, or when the process is pinned to the CPU
+    (CPU compiles are fast, and reloading CPU executables warns per kernel).
+    """
+    if environ.get("RII_TPU_NO_COMPILE_CACHE"):
+        return None
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    if platforms and all(
+            p.strip() == "cpu" for p in platforms.split(",") if p.strip()):
+        return None
+    return COMPILE_CACHE_DIR
+
 
 def _enable_persistent_compile_cache():
-    """Persist compiled executables across processes (index builds are
-    compile-bound on remote-compile backends: ~14s -> ~1s per kernel).
-
-    Respects an existing user setting; disable with RII_TPU_NO_COMPILE_CACHE=1.
-
-    Scoped to accelerator backends: when the process has already pinned JAX to
-    CPU (e.g. the test suite's conftest), the cache is left off — CPU compiles
-    are local and fast, and reloading CPU AOT executables emits a noisy
-    machine-feature warning per kernel.
-    """
-    if _os.environ.get("RII_TPU_NO_COMPILE_CACHE"):
-        return
+    """Persist compiled executables across processes (see
+    _compile_cache_dir for where)."""
     try:
         import jax
 
-        if getattr(jax.config, "jax_compilation_cache_dir", None):
-            return  # user already configured one
-        platforms = getattr(jax.config, "jax_platforms", None)
-        if platforms and all(
-                p.strip() == "cpu" for p in platforms.split(",") if p.strip()):
-            return  # CPU-only process: skip the persistent cache
-        cache = _os.environ.get(
-            "JAX_COMPILATION_CACHE_DIR",
-            _os.path.join(_os.path.expanduser("~"), ".cache", "rii_tpu",
-                          "jax_cache"))
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+        cache = _compile_cache_dir(
+            _os.environ, getattr(jax.config, "jax_platforms", None))
+        if cache:
+            jax.config.update("jax_compilation_cache_dir", cache)
     except Exception:
         pass  # never block import on cache setup
 

@@ -1,7 +1,7 @@
 """Host-side builders for the cluster-grouped IVF storage layout.
 
 The reference keeps ragged posting lists of ids (/root/reference/src/rii.h:81-82).
-On TPU we instead keep a single flat code array *permuted so each cluster's
+On the device we instead keep a single flat code array *permuted so each cluster's
 members are contiguous*, with every bucket padded to an 8-slot multiple:
 
     order[slot]         -> original vector id (-1 on padding slots)
@@ -10,22 +10,21 @@ members are contiguous*, with every bucket padded to an 8-slot multiple:
     bucket_start[c]     -> first slot of cluster c
     bucket_len[c]       -> true member count of cluster c
 
-Probing cluster c is then a contiguous (start, cap_max) window read — the
-DMA-friendly replacement for a ragged id walk.
+Probing cluster c is then a contiguous (start, cap_max) window read — one
+coalesced copy in place of a ragged id walk.
 """
 
 import numpy as np
 
-_PAD = 8  # slot alignment per bucket (f32 sublane tile)
+_PAD = 8  # slot alignment per bucket
 
 
 def code_norms_np(codewords, codes):
     """||decode(code)||^2 per row, on host: (N, M) uint8 -> (N,) f32.
 
     Per-column uint8 gathers: a single fancy-index over the (N, M) array
-    materializes an int64 index copy (2 GB at N=32M) and measured 8-20x
-    slower than this loop (27.6 s -> ~2 s for the SIFT1B-shape first-query
-    norms pass, SIFT1B_SHAPE.md)."""
+    materializes an int64 index copy (2 GB at N=32M), which this host loop
+    avoids."""
     cw = np.asarray(codewords, dtype=np.float32)
     cnorms = np.sum(cw * cw, axis=-1)  # (M, Ks)
     m = cnorms.shape[0]
@@ -106,7 +105,7 @@ def build_virtual_layout(codes, norms, assignments, nlist, cap_v=256, pad_to=8,
     virtual bucket v owns the contiguous slice [v*cap_v, (v+1)*cap_v) of the
     grouped arrays and inherits its real bucket's coarse center (`vreal[v]`).
     Probing is done over virtual buckets with the probe-width formula scaled by
-    nlist_v, so the candidate budget ~L is preserved while every DMA window has
+    nlist_v, so the candidate budget ~L is preserved while every window has
     ONE static size — bucket-size skew costs at most cap_v-1 padding slots per
     real bucket instead of inflating every window to the max bucket length.
 
@@ -166,21 +165,11 @@ def build_virtual_layout(codes, norms, assignments, nlist, cap_v=256, pad_to=8,
     valid = order >= 0
     codes_grouped[valid] = codes[order[valid]]
     norms_grouped[valid] = norms[order[valid]]
-
-    # member count per virtual bucket (padding is always a suffix, so a
-    # row-index < vlen test reproduces the +inf-norms mask in kernels that
-    # cannot stream the norms): window j of bucket b holds
-    # clip(counts[b] - j*cap_v, 0, cap_v) members
-    vlen = np.zeros(nlist_v_pad, dtype=np.int32)
-    wb = vreal[:nlist_v].astype(np.int64)
-    win_j = np.arange(nlist_v, dtype=np.int64) - vstart[wb]
-    vlen[:nlist_v] = np.clip(counts[wb] - win_j * cap_v, 0, cap_v)
     return {
         "order": order,
         "codes_grouped": codes_grouped,
         "norms_grouped": norms_grouped,
         "vreal": vreal,
-        "vlen": vlen,
         "vstart": vstart,
         "counts": counts.astype(np.int64),
         "cap_v": cap_v,
@@ -190,8 +179,7 @@ def build_virtual_layout(codes, norms, assignments, nlist, cap_v=256, pad_to=8,
     }
 
 
-def append_placement(assign, counts, vstart, cap_v, v_capacity,
-                     want_vlen=True):
+def append_placement(assign, counts, vstart, cap_v, v_capacity):
     """Host-side placement for an O(batch) append into a grouped layout
     built by :func:`build_virtual_layout` (shared by the single-chip
     Rii._apply_add_to_cache and ShardedRii._apply_add_sharded so the
@@ -206,11 +194,7 @@ def append_placement(assign, counts, vstart, cap_v, v_capacity,
     (the caller then rebuilds), else a dict:
       perm (k,) stable bucket-sort permutation of the batch,
       slots (k,) int64 grouped-array destinations for the PERMUTED batch,
-      new_counts (nlist,) updated per-bucket member counts,
-      wins / vls int32 arrays (None unless want_vlen): the touched windows
-      and their new member counts — the vlen stream update for kernels that
-      mask by count; the bf16 window tier masks by +inf norms instead and
-      skips this per-bucket host loop.
+      new_counts (nlist,) updated per-bucket member counts.
     """
     assign = np.asarray(assign)
     assert (assign >= 0).all(), "append_placement needs fully assigned rows"
@@ -224,21 +208,7 @@ def append_placement(assign, counts, vstart, cap_v, v_capacity,
     srt = assign[perm]
     offs = np.arange(k, dtype=np.int64) - np.searchsorted(srt, srt)
     slots = vstart[srt] * cap_v + counts[srt] + offs
-    out = {"perm": perm, "slots": slots, "new_counts": new_counts,
-           "wins": None, "vls": None}
-    if want_vlen:
-        # touched windows + new member counts, vectorized over the batch's
-        # unique buckets (no per-bucket Python loop — nlist can be 31623)
-        ub = np.unique(srt)
-        nwin = -(-np.asarray(v_capacity, np.int64)[ub] // cap_v)
-        wb = np.repeat(ub, nwin)  # bucket of each touched window
-        win_j = (np.arange(int(nwin.sum()), dtype=np.int64)
-                 - np.repeat(np.cumsum(nwin) - nwin, nwin))
-        out["wins"] = (np.asarray(vstart, np.int64)[wb]
-                       + win_j).astype(np.int32)
-        out["vls"] = np.clip(new_counts[wb] - win_j * cap_v,
-                             0, cap_v).astype(np.int32)
-    return out
+    return {"perm": perm, "slots": slots, "new_counts": new_counts}
 
 
 def posting_lists_from_assignments(assignments, nlist):

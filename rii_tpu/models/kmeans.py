@@ -6,7 +6,7 @@ large matmuls instead of the reference's per-subspace scipy loops
 (nanopq contract: SURVEY.md section 2.4).
 
 Determinism: initialization is a fixed-key ``jax.random.permutation`` pick of data
-points (the TPU-native analog of the reference's ``mt19937(0)`` shuffle-pick,
+points (the device analog of the reference's ``mt19937(0)`` shuffle-pick,
 /root/reference/src/pqkmeans.cpp:177-191), so repeated fits with the same key are
 bit-reproducible — a property the reference's test suite relies on (SURVEY.md section 4).
 """
@@ -18,7 +18,7 @@ import jax.numpy as jnp
 from jax import lax
 
 # Distance/assignment matmuls use HIGHEST precision: codebook training happens once,
-# and f32 MXU passes keep parity with the reference's float accumulation.
+# and f32 matmuls keep parity with the reference's float accumulation.
 _PREC = lax.Precision.HIGHEST
 
 

@@ -1,8 +1,9 @@
-"""PQ decode as one-hot matmuls — the MXU-friendly gather replacement.
+"""PQ decode as one-hot matmuls — the matmul replacement for a gather.
 
-On TPU a per-element dynamic gather (``dtable[m][code]``) does not vectorize; a
-one-hot matmul trades O(Ks) extra FLOPs per code byte for full MXU throughput,
-and the cost is paid once per scanned block, amortized over the whole query batch.
+A one-hot matmul trades O(Ks) extra FLOPs per code byte for a dense
+contraction in place of a per-element gather (``dtable[m][code]``); the cost is
+paid once per scanned block, amortized over the whole query batch. On the GPU
+a shared-memory codebook lookup is the likely better answer (ROADMAP D1).
 """
 
 import jax

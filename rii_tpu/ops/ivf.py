@@ -1,11 +1,11 @@
-"""IVF probing scan (the TPU re-design of QueryIvf, /root/reference/src/rii.h:244-326).
+"""IVF probing scan (the batched re-design of QueryIvf, /root/reference/src/rii.h:244-326).
 
 Differences from the reference, by design (SURVEY.md section 7, "hard parts"):
 
 - Posting lists are stored as a *cluster-grouped* flat code array: codes are
   permuted so each cluster's members are contiguous (``bucket_start``/``order``),
   every bucket padded to a common static capacity window. Probing a cluster is a
-  contiguous slice — DMA-friendly — instead of a ragged id walk.
+  contiguous slice — one coalesced copy — instead of a ragged id walk.
 - The reference's data-dependent early termination (stop at exactly L collected
   candidates, /root/reference/src/rii.h:302-309) does not map to SPMD. We score
   *all* members of the top-w probed clusters, with the same probe width
@@ -19,7 +19,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from rii_tpu.ops.decode import onehot_decode
+from rii_tpu.ops.decode import onehot_decode, onehot_decode_exact
 from rii_tpu.ops.scan import _select_topk
 
 _PREC = lax.Precision.HIGHEST
@@ -37,9 +37,9 @@ def _probe_topk(cscores, w, recall_target):
 
     Exact lax.top_k in exact mode (recall_target=None — preserves the
     provable probe-superset property, RECALL_PARITY.md), approx_max_k in the
-    default fast mode: measured ~2.7x cheaper at (Q=64, nlist_pad~4.9k, w=64)
-    and the merge stage is already approx in that mode, so the accuracy
-    class is unchanged. NOTE a missed probe drops a whole bucket — a
+    default fast mode (an exact top-k wherever the platform has no hardware
+    partial-reduce; the merge stage is already approx in that mode, so the
+    accuracy class is unchanged). NOTE a missed probe drops a whole bucket — a
     different failure class from bf16 selection noise (the exact rescore
     cannot recover it) — so the engine exposes ``Rii.probe_recall`` to force
     exact probes independently of the merge (measured impact:
@@ -74,22 +74,21 @@ def _coarse_scores(q_all, q16, centers_dec, centers_norms, exact):
 
 
 @partial(jax.jit, static_argnames=("w", "topk", "cap_u", "nlist_pad",
-                                   "recall_target", "use_pallas",
-                                   "interpret", "probe_recall", "overfetch"))
+                                   "recall_target", "probe_recall",
+                                   "overfetch", "codes_grouped"))
 def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
                         centers_norms, w, topk, cap_u, nlist_pad,
-                        target_mask=None, recall_target=None,
-                        use_pallas=False, interpret=False, probes=None,
+                        target_mask=None, recall_target=None, probes=None,
                         probe_recall="inherit", codes=None, codewords=None,
-                        overfetch=2):
+                        overfetch=2, codes_grouped=False):
     """Batched IVF probe via the UNION of the batch's probed buckets.
 
-    The TPU-native replacement for the reference's per-query posting-list walk
+    The batched replacement for the reference's per-query posting-list walk
     (/root/reference/src/rii.h:244-326): instead of gathering candidate rows
     per query (random HBM access), the batch's w-nearest buckets are deduped
     into one sorted union and every union bucket — a contiguous (cap_u, D)
     block of the uniform grouped replica — is scored against ALL queries with
-    one batched MXU GEMM. Large contiguous DMAs, shared across the batch.
+    one batched GEMM. Large contiguous copies, shared across the batch.
 
     Semantics vs the reference: each query's candidate set is the union of
     every bucket probed by ANY query in the batch (a superset of its own w
@@ -112,6 +111,11 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
         probes: optional (flat (U,) int32 sorted window ids, dup (U,) bool/int
             duplicate-or-masked flags) — overrides steps (1)-(2); used by the
             sharded engine's deterministic global-probe selection.
+        codes/codewords: optional; the final top-k is then re-ranked in
+            exact f32 ADC from the uint8 codes of an overfetched pool.
+            `codes` is the original-order (cap, M) array (rows addressed via
+            order_g), or with codes_grouped=True the grouped (total, M)
+            layout addressed by slot (the sharded engine's local store).
 
     Returns (dists (Q, topk) f32 ascending, ids (Q, topk) int32, -1 padded).
     """
@@ -146,104 +150,8 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
             dup = jnp.concatenate(
                 [jnp.zeros((1,), bool), flat[1:] == flat[:-1]])
 
-    if use_pallas:
-        # fused kernel: windows streamed in place (no gather copy); per-8-slot
-        # top-2 + approx cross-tile merge + EXACT f32 rescore of the final
-        # top-k. Norms are derived IN KERNEL from the decoded rows (bf16-class
-        # at selection; a streamed-norms variant measured 2x slower — see the
-        # kernel docstrings); only a 0/+inf PENALTY stream rides a (cap_v, 1)
-        # channel, carrying the subset filter (reference behavior:
-        # src/rii.h:291-295) and duplicate-window masking. The exact f32
-        # rescore below absorbs the selection precision. On hardware, WPB
-        # windows per grid step via manual async DMA; interpret mode (CPU
-        # tests) uses the single-window auto-pipelined variant (same math).
-        from rii_tpu.ops.pallas_scan import (
-            ivf_window_tile_minima,
-            ivf_window_tile_minima_multi,
-        )
-
-        flat_i = flat.astype(jnp.int32)
-        dup_i = dup.astype(jnp.int32)
-        pen_g = None
-        if target_mask is not None:
-            pen_g = jnp.where(target_mask, jnp.float32(0.0),
-                              jnp.float32(jnp.inf))[:, None]  # (total, 1)
-        if interpret or d % 128 != 0:
-            # the multi-window variant's MANUAL DMA slices need 128-aligned
-            # lane dims (Mosaic tiling); odd D rides the auto-pipelined
-            # single-window variant (same math, one window per grid step)
-            vmin, amin = ivf_window_tile_minima(
-                q_all, decoded_g, flat_i, dup_i, cap_v=cap_u,
-                interpret=interpret, pen=pen_g)
-        else:
-            # bound the per-step output block (wpb * 2*cap_v/8 * Q * 8B) to
-            # ~4 MB so large windows / big batches stay inside VMEM
-            wpb = max(1, min(32, (1 << 22) // max(1, (cap_u // 4) * qn * 8)))
-            upad = -(-flat_i.shape[0] // wpb) * wpb - flat_i.shape[0]
-            if upad:
-                flat_i = jnp.pad(flat_i, (0, upad), constant_values=0)
-                dup_i = jnp.pad(dup_i, (0, upad), constant_values=1)
-            pen_probe = None
-            if pen_g is not None:
-                # gather the penalty into probe order (manual DMAs cannot
-                # tile 1-lane slices; the pipelined mask block can). The
-                # gather is paid ONLY on subset queries — a streamed-norms
-                # variant gathering unconditionally measured 2x slower at
-                # U=4096 (XLA row gathers degrade at thousands of rows)
-                pen_probe = jnp.take(pen_g.reshape(nlist_pad, cap_u),
-                                     flat_i, axis=0).reshape(-1, 1)
-            vmin, amin = ivf_window_tile_minima_multi(
-                q_all, decoded_g, flat_i, dup_i, cap_v=cap_u, wpb=wpb,
-                pen=pen_probe)
-        # with codes/codewords: overfetch so exact re-ranking can repair bf16
-        # selection noise near the topk boundary (the int8 tier's epilogue,
-        # round-4 VERDICT item 4); without: rescore the topk winners only
-        k_sel = topk if codes is None else max(topk * overfetch, topk + 8)
-        k_eff = min(k_sel, vmin.shape[1])
-        if recall_target is None:
-            neg_sel, pos = lax.top_k(-vmin, k_eff)
-        else:
-            neg_sel, pos = lax.approx_max_k(-vmin, k_eff,
-                                            recall_target=recall_target)
-        slot_top = jnp.take_along_axis(amin, pos, axis=1)  # (Q, k_eff)
-        if codes is None:
-            # exact rescore: f32 norms + f32-accumulated cross on k_eff rows
-            rows = jnp.take(decoded_g, jnp.maximum(slot_top, 0), axis=0)
-            cross = jnp.einsum("qkd,qd->qk", rows, q16,
-                               preferred_element_type=jnp.float32)
-        else:
-            # EXACT f32 ADC: reconstruct candidate rows from the uint8 codes
-            # (one-hot decode against f32 codewords — see
-            # pallas_scan._exact_rescore_codes); gathers only Q*k_eff rows
-            from rii_tpu.ops.decode import onehot_decode_exact
-            ids0 = jnp.take(order_g, jnp.maximum(slot_top, 0))
-            cand = jnp.take(codes, jnp.maximum(ids0, 0), axis=0)
-            dec = onehot_decode_exact(cand.reshape(qn * k_eff, -1),
-                                      codewords).reshape(qn, k_eff, -1)
-            cross = jnp.einsum("qkd,qd->qk", dec, q_all,
-                               precision=lax.Precision.HIGHEST,
-                               preferred_element_type=jnp.float32)
-        nrm_c = jnp.take(norms_g, jnp.maximum(slot_top, 0))
-        qsq = jnp.sum(q_all * q_all, axis=-1)
-        exact = nrm_c - 2.0 * cross + qsq[:, None]
-        # +inf-masked duplicate-window candidates (pen=+inf in kernel) point at
-        # real slots whose norms are finite: keep them masked so ids are unique
-        exact = jnp.where(jnp.isfinite(neg_sel), exact, jnp.inf)
-        k_out = min(topk, k_eff)
-        neg, pos2 = lax.top_k(-exact, k_out)
-        slot_top = jnp.take_along_axis(slot_top, pos2, axis=1)
-        ids = jnp.take(order_g, slot_top)
-        dists = -neg
-        if k_out < topk:
-            dists = jnp.concatenate(
-                [dists, jnp.full((qn, topk - k_out), jnp.inf)], axis=1)
-            ids = jnp.concatenate(
-                [ids, jnp.full((qn, topk - k_out), -1, ids.dtype)], axis=1)
-        ids = jnp.where(jnp.isfinite(dists), ids, -1)
-        return dists, ids
-
     # (3) chunked bucket-window scoring: gather whole buckets (contiguous
-    # (cap_u, D) blocks) and run one (Uc*cap_u, D) x (D, Q) MXU GEMM per chunk.
+    # (cap_u, D) blocks) and run one (Uc*cap_u, D) x (D, Q) GEMM per chunk.
     # Chunk size bounds the (Uc, cap_u, Q) f32 score transient to ~64 MB.
     uc = max(1, min(u, (1 << 24) // max(1, cap_u * qn)))
     n_chunks = -(-u // uc)
@@ -254,8 +162,7 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
 
     dec3 = decoded_g.reshape(nlist_pad, cap_u, d)
     norms2 = norms_g.reshape(nlist_pad, cap_u)
-    # per-chunk overfetch when an exact-codes rescore follows (see the pallas
-    # branch): with one chunk (the common small-union case) the final pool IS
+    # per-chunk overfetch when an exact-codes rescore follows: with one chunk (the common small-union case) the final pool IS
     # the per-chunk pool, so the overfetch must happen here
     k_sel = topk if codes is None else max(topk * overfetch, topk + 8)
     k_eff = min(k_sel, uc * cap_u)
@@ -280,13 +187,13 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
     slots = jnp.swapaxes(slots, 0, 1).reshape(qn, n_chunks * k_eff)
     qsq = jnp.sum(q_all * q_all, axis=-1)
     if codes is not None:
-        # exact f32 ADC re-rank of the overfetched pool (pallas-branch twin)
-        from rii_tpu.ops.decode import onehot_decode_exact
+        # exact f32 ADC re-rank of the overfetched pool
         k_fetch = min(k_sel, n_chunks * k_eff)
         neg_sel, pos = lax.top_k(negs, k_fetch)
         slot_top = jnp.take_along_axis(slots, pos, axis=1)
-        ids0 = jnp.take(order_g, jnp.maximum(slot_top, 0))
-        cand = jnp.take(codes, jnp.maximum(ids0, 0), axis=0)
+        rows = (slot_top if codes_grouped
+                else jnp.take(order_g, jnp.maximum(slot_top, 0)))
+        cand = jnp.take(codes, jnp.maximum(rows, 0), axis=0)
         dec_c = onehot_decode_exact(cand.reshape(qn * k_fetch, -1),
                                     codewords).reshape(qn, k_fetch, -1)
         cross = jnp.einsum("qkd,qd->qk", dec_c, q_all,
@@ -315,19 +222,16 @@ def ivf_union_scan_topk(queries, decoded_g, norms_g, order_g, centers_dec,
 
 
 @partial(jax.jit, static_argnames=("w", "topk", "cap_u", "nlist_pad",
-                                   "recall_target", "use_pallas",
-                                   "interpret", "probe_recall"))
+                                   "recall_target", "probe_recall"))
 def ivf_union_scan_topk_pq(queries, codes_g, norms_g, order_g, codewords,
                            centers_dec, centers_norms, w, topk, cap_u,
                            nlist_pad, target_mask=None, recall_target=None,
-                           vlen=None, cw_padded=None, use_pallas=False,
-                           interpret=False, probes=None,
-                           probe_recall="inherit"):
+                           probes=None, probe_recall="inherit"):
     """Memory-lean union-bucket IVF over uint8 code windows (no replica).
 
     Same probe/union/merge scaffold as :func:`ivf_union_scan_topk`, but the
     stored windows are the raw (cap_u, M) uint8 PQ codes; each chunk is
-    decoded in-flight with one-hot MXU matmuls (ops/decode.onehot_decode)
+    decoded in-flight with one-hot matmuls (ops/decode.onehot_decode)
     before the scoring GEMM. This is the IVF path for big-N deployments where
     the bf16 replica does not fit (e.g. SIFT1B-class shards): storage is
     N*M bytes + the grouped-layout padding.
@@ -371,65 +275,6 @@ def ivf_union_scan_topk_pq(queries, codes_g, norms_g, order_g, codewords,
     codes3 = codes_g.reshape(nlist_pad, cap_u, m)
     norms2 = norms_g.reshape(nlist_pad, cap_u)
     k_eff = min(topk, uc * cap_u)
-
-    if use_pallas and vlen is not None and cw_padded is not None:
-        # fused kernel: code windows decoded IN VMEM (no HBM one-hot), per-
-        # 8-slot top-2 + approx merge + exact f32 rescore from the codes.
-        # A target_mask rides as the per-slot penalty stream (subset filter
-        # on the fast path; reference behavior src/rii.h:291-295).
-        # Small Q (< D) uses the DTABLE formulation — M*cap_v*Ks*Q MACs per
-        # window instead of decode's M*cap_v*Ks*D, a ~D/Q FLOP cut.
-        from rii_tpu.ops.pallas_scan import (
-            ivf_dt_window_tile_minima,
-            ivf_pq_window_tile_minima,
-        )
-
-        flat_i = flat.astype(jnp.int32)
-        dup_i = dup.astype(jnp.int32)
-        pen_g = None
-        if target_mask is not None:
-            pen_g = jnp.where(target_mask, jnp.float32(0.0),
-                              jnp.float32(jnp.inf))[:, None]  # (total, 1)
-        d_dim = codewords.shape[0] * codewords.shape[2]
-        if qn < d_dim:
-            vmin, amin = ivf_dt_window_tile_minima(
-                q_all, codes_g, codewords, flat_i, dup_i,
-                jnp.take(vlen, flat_i), cap_v=cap_u, interpret=interpret,
-                pen=pen_g)
-        else:
-            vmin, amin = ivf_pq_window_tile_minima(
-                q_all, codes_g, cw_padded, flat_i, dup_i,
-                jnp.take(vlen, flat_i), cap_v=cap_u, interpret=interpret,
-                pen=pen_g)
-        k_sel = min(topk, vmin.shape[1])
-        if recall_target is None:
-            neg_sel, pos = lax.top_k(-vmin, k_sel)
-        else:
-            neg_sel, pos = lax.approx_max_k(-vmin, k_sel,
-                                            recall_target=recall_target)
-        slot_top = jnp.take_along_axis(amin, pos, axis=1)  # (Q, k_sel)
-        safe = jnp.maximum(slot_top, 0)
-        cand = jnp.take(codes_g, safe.reshape(-1), axis=0)
-        dec = onehot_decode(cand, codewords, dtype=jnp.float32,
-                            precision=_PREC).reshape(qn, k_sel, -1)
-        qsq = jnp.sum(q_all * q_all, axis=-1)
-        cross = jnp.einsum("qkd,qd->qk", dec, q_all, precision=_PREC)
-        nrm_c = jnp.take(norms_g, safe)  # +inf re-masks padding slots
-        exact = nrm_c - 2.0 * cross + qsq[:, None]
-        # dup-window (+inf-penalized) selections must stay masked: their codes
-        # decode to finite distances and would duplicate ids otherwise
-        exact = jnp.where(jnp.isfinite(neg_sel), exact, jnp.inf)
-        neg, pos2 = lax.top_k(-exact, k_sel)
-        slot_top = jnp.take_along_axis(slot_top, pos2, axis=1)
-        ids = jnp.take(order_g, slot_top)
-        dists = -neg
-        if k_sel < topk:
-            dists = jnp.concatenate(
-                [dists, jnp.full((qn, topk - k_sel), jnp.inf)], axis=1)
-            ids = jnp.concatenate(
-                [ids, jnp.full((qn, topk - k_sel), -1, ids.dtype)], axis=1)
-        ids = jnp.where(jnp.isfinite(dists), ids, -1)
-        return dists, ids
 
     # selection dtype: the XLA one-hot decode materializes (rows, M, Ks) in
     # HBM (~34 KB of traffic per candidate slot) and dominates this path; bf16
@@ -487,125 +332,6 @@ def ivf_union_scan_topk_pq(queries, codes_g, norms_g, order_g, codewords,
             [dists, jnp.full((qn, topk - kk), jnp.inf)], axis=1)
         ids = jnp.concatenate(
             [ids, jnp.full((qn, topk - kk), -1, ids.dtype)], axis=1)
-    ids = jnp.where(jnp.isfinite(dists), ids, -1)
-    return dists, ids
-
-
-@partial(jax.jit, static_argnames=("w", "topk", "cap_u", "nlist_pad",
-                                   "recall_target", "interpret",
-                                   "codes_grouped", "probe_recall"))
-def ivf_union_scan_topk_i8(queries, decoded_g_i8, col_scales, norms_g,
-                           order_g, codes, codewords, centers_dec,
-                           centers_norms, w, topk, cap_u, nlist_pad,
-                           vlen=None, target_mask=None, recall_target=None,
-                           interpret=False, probes=None,
-                           codes_grouped=False, probe_recall="inherit"):
-    """Union-bucket IVF over int8 virtual-bucket windows — the middle memory
-    tier (cap*D bytes vs bf16's 2x, ~M/D of the pq windows' compute).
-
-    Same probe/union scaffold as :func:`ivf_union_scan_topk` (including the
-    optional precomputed `probes` override for the sharded deterministic
-    path); selection runs the fused int8 window kernels (half the bf16 DMA
-    traffic, int8 MXU), and the final top-k is exactly rescored from the
-    uint8 codes, so returned distances are the usual exact-ADC f32 class.
-    `codes` is the original-order (cap, M) array by default (rows addressed
-    via order_g); codes_grouped=True treats it as the GROUPED (total, M)
-    layout addressed by slot (the sharded engine's local store). Always
-    fused (this mode is only selected on accelerators; interpret=True covers
-    CPU tests).
-    """
-    from rii_tpu.ops.pallas_scan import (
-        ivf_i8_window_tile_minima,
-        ivf_i8_window_tile_minima_multi,
-    )
-
-    q_all = queries.astype(jnp.float32)
-    qn = q_all.shape[0]
-    d = q_all.shape[1]
-    q16 = q_all.astype(jnp.bfloat16)
-
-    if target_mask is not None:
-        norms_g = jnp.where(target_mask, norms_g, jnp.inf)
-
-    if probes is not None:
-        flat, dup = probes
-        flat = flat.astype(jnp.int32)
-        dup = dup.astype(jnp.int32)
-    else:
-        pr = recall_target if probe_recall == "inherit" else probe_recall
-        cscores = _coarse_scores(q_all, q16, centers_dec, centers_norms,
-                                 exact=pr is None)
-        probe = _probe_topk(cscores, w, pr)  # (Q, w)
-
-        if qn * w >= nlist_pad:
-            flat = jnp.arange(nlist_pad, dtype=jnp.int32)
-            dup = jnp.zeros((nlist_pad,), dtype=jnp.int32)
-        else:
-            flat = jnp.sort(probe.astype(jnp.int32).reshape(-1))
-            dup = jnp.concatenate(
-                [jnp.zeros((1,), jnp.int32),
-                 (flat[1:] == flat[:-1]).astype(jnp.int32)])
-
-    # padding is masked gather-free via the scalar-prefetched per-window
-    # member counts (vlen); the subset mask rides the (subset-only) pen
-    # stream — same no-gather-in-the-common-case policy as the bf16 path
-    pen_g = None
-    if target_mask is not None:
-        pen_g = jnp.where(target_mask, jnp.float32(0.0),
-                          jnp.float32(jnp.inf))[:, None]  # (total, 1)
-    vl = (jnp.take(vlen, flat) if vlen is not None
-          else jnp.full(flat.shape, cap_u, jnp.int32))
-    if interpret or d % 128 != 0:
-        vmin, amin = ivf_i8_window_tile_minima(
-            q_all, decoded_g_i8, col_scales, flat, dup, vl,
-            cap_v=cap_u, interpret=interpret, pen=pen_g)
-    else:
-        wpb = max(1, min(32, (1 << 22) // max(1, (cap_u // 4) * qn * 8)))
-        upad = -(-flat.shape[0] // wpb) * wpb - flat.shape[0]
-        if upad:
-            flat = jnp.pad(flat, (0, upad), constant_values=0)
-            dup = jnp.pad(dup, (0, upad), constant_values=1)
-            vl = jnp.pad(vl, (0, upad), constant_values=0)
-        pen_probe = None
-        if pen_g is not None:
-            pen_probe = jnp.take(pen_g.reshape(nlist_pad, cap_u),
-                                 flat, axis=0).reshape(-1, 1)
-        vmin, amin = ivf_i8_window_tile_minima_multi(
-            q_all, decoded_g_i8, col_scales, flat, dup, vl,
-            cap_v=cap_u, wpb=wpb, pen=pen_probe)
-
-    # int8 selection reorders near-boundary candidates: overfetch 2x before
-    # the exact rescore (same policy as replica_i8_scan_topk's overfetch)
-    k_sel = min(max(2 * topk, topk + 8), vmin.shape[1])
-    if recall_target is None:
-        neg_sel, pos = lax.top_k(-vmin, k_sel)
-    else:
-        neg_sel, pos = lax.approx_max_k(-vmin, k_sel,
-                                        recall_target=recall_target)
-    slot_top = jnp.take_along_axis(amin, pos, axis=1)  # (Q, k_sel)
-    safe = jnp.maximum(slot_top, 0)
-    ids_orig = jnp.take(order_g, safe)  # (Q, k_sel) original ids (-1 pad)
-    if codes_grouped:
-        cand = jnp.take(codes, safe.reshape(-1), axis=0)
-    else:
-        cand = jnp.take(codes, jnp.maximum(ids_orig, 0).reshape(-1), axis=0)
-    dec = onehot_decode(cand, codewords, dtype=jnp.float32,
-                        precision=_PREC).reshape(qn, k_sel, -1)
-    qsq = jnp.sum(q_all * q_all, axis=-1)
-    cross = jnp.einsum("qkd,qd->qk", dec, q_all, precision=_PREC)
-    nrm_c = jnp.take(norms_g, safe)  # +inf re-masks padding/excluded slots
-    exact = nrm_c - 2.0 * cross + qsq[:, None]
-    exact = jnp.where(jnp.isfinite(neg_sel), exact, jnp.inf)
-    k_sel = min(topk, k_sel)
-    neg, pos2 = lax.top_k(-exact, k_sel)
-    slot_top = jnp.take_along_axis(slot_top, pos2, axis=1)
-    ids = jnp.take(order_g, slot_top)
-    dists = -neg
-    if k_sel < topk:
-        dists = jnp.concatenate(
-            [dists, jnp.full((qn, topk - k_sel), jnp.inf)], axis=1)
-        ids = jnp.concatenate(
-            [ids, jnp.full((qn, topk - k_sel), -1, ids.dtype)], axis=1)
     ids = jnp.where(jnp.isfinite(dists), ids, -1)
     return dists, ids
 

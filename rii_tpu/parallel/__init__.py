@@ -4,7 +4,8 @@ The reference's only parallelism is OpenMP threads over database points
 (SURVEY.md section 2.5). Here that axis becomes a first-class ``jax.sharding.Mesh``
 ("data" = database shard): each chip ADC-scans its code shard, computes a local
 top-k, and the shards are merged with an all-gather + final top-k — collectives
-ride ICI, overlapping with the next block's scan under XLA's scheduler.
+ride the device interconnect, overlapping with the next block's scan under
+XLA's scheduler.
 """
 
 from rii_tpu.parallel.mesh import (make_mesh, make_mesh_hc, put_sharded,

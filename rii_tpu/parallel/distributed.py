@@ -1,7 +1,8 @@
 """ShardedRii: a Rii engine whose database is row-sharded over a device mesh.
 
 The reference scales within one process via OpenMP threads (SURVEY.md 2.5); the
-TPU equivalent is data-parallel shards over ICI/DCN. For multi-host pods call
+device equivalent is data-parallel shards over the cards of a host (NVLink)
+and across hosts. For multi-host deployments call
 :func:`init_distributed` first (jax.distributed), build the same Rii state on
 every host, then wrap it — :func:`rii_tpu.parallel.mesh.put_sharded` transfers
 only each host's addressable shard (`jax.make_array_from_process_local_data`).
@@ -41,8 +42,8 @@ from rii_tpu.ops.ivf import (
     ivf_union_scan_topk,
     ivf_union_scan_topk_pq,
 )
-from rii_tpu.ops.pallas_scan import _TN_MIN_Q
-from rii_tpu.ops.scan import linear_scan_topk, linear_scan_topk_decoded
+from rii_tpu.ops.replica_scan import replica_scan_topk
+from rii_tpu.ops.scan import _BIG_Q, linear_scan_topk, linear_scan_topk_decoded
 from rii_tpu.parallel.mesh import make_mesh, put_sharded, DATA_AXIS
 
 
@@ -79,8 +80,6 @@ class ShardedRii:
         mesh: 1-D ("data",) or 2-D ("hosts","chips") mesh (make_mesh_hc);
             defaults to all local devices.
         use_decoded: window/replica tier. True = bf16 decoded replicas;
-            "i8" = int8 virtual-bucket windows (half the bf16 bytes, exact
-            rescore from code windows) with a codes-based linear scan;
             False = memory-lean uint8 code windows; None = follow the
             engine's scan-mode policy.
         overlap_chunks: linear-scan chunk count for collective/scan overlap.
@@ -88,11 +87,14 @@ class ShardedRii:
 
     def __init__(self, engine, mesh=None, use_decoded=None, overlap_chunks=4,
                  growth_headroom=0.125):
+        if use_decoded not in (None, True, False):
+            raise ValueError(
+                f"use_decoded must be None, True or False (got {use_decoded!r})")
         self.engine = engine
         self.mesh = mesh or make_mesh()
         # 1-D ("data",) or 2-D ("hosts", "chips") meshes (make_mesh_hc):
-        # rows shard over ALL axes; the 2-D merge stages chip-axis (ICI)
-        # before host-axis (DCN)
+        # rows shard over ALL axes; the 2-D merge stages the chip axis
+        # (within a host) before the host axis
         self.axes = tuple(self.mesh.axis_names)
         self.ndev = int(np.prod([self.mesh.shape[a] for a in self.axes]))
         self._dim0 = self.axes if len(self.axes) > 1 else self.axes[0]
@@ -141,10 +143,7 @@ class ShardedRii:
         norms = code_norms_np(cw, codes)
 
         n = len(codes)
-        # accelerator + replica: shard capacity in 16384-row granules so the
-        # transposed NN kernel's out-block constraint holds per shard
-        use_dec_opt = self._use_decoded_opt in (None, True)
-        block = 16384 if (self._use_pallas() and use_dec_opt) else 1024
+        block = 1024  # shard capacity granule
         # growth headroom: spare tail rows (+inf norms, so scans ignore them)
         # that O(batch) delta-adds fill before forcing a rebuild; an
         # engine.reserve() call extends it to the reservation
@@ -169,14 +168,8 @@ class ShardedRii:
         use_decoded = self._use_decoded_opt
         if use_decoded is None:
             use_decoded = engine._use_decoded_cache(cap)
-        if use_decoded == "i8":
-            use_decoded = False
-            win_mode = "i8"
-        else:
-            win_mode = "bf16" if use_decoded else "pq"
+        win_mode = "bf16" if use_decoded else "pq"
         self.decoded = None
-        self.decoded_t = None
-        self.norms_rep = None
         sh = jax.sharding.NamedSharding(mesh, P(self._dim0, None))
         if use_decoded:
             # decode under jit: sharding propagates row-wise, each device
@@ -184,18 +177,6 @@ class ShardedRii:
             self.decoded = jax.jit(
                 build_decoded_cache, static_argnames=("block",),
                 out_shardings=sh)(self.codes, self.codewords, block=self.block)
-            if self._use_pallas():
-                # accelerator: per-shard TRANSPOSED replica so each chip's
-                # scan rides the roofline kernel (ops/pallas_scan.py
-                # transposed-replica block comment)
-                sh_t = jax.sharding.NamedSharding(mesh, P(None, self._dim0))
-                sh_r = jax.sharding.NamedSharding(mesh, P(None, self._dim0))
-                self.decoded_t = jax.jit(jnp.transpose, out_shardings=sh_t)(
-                    self.decoded)
-                self.norms_rep = jax.jit(
-                    lambda n: n[None, :],
-                    out_shardings=sh_r)(self.norms)
-                self.decoded = None  # one replica per shard, not two
 
         # sharded IVF over the balanced virtual-bucket layout: each shard owns
         # a contiguous range of virtual windows + their (replicated-center
@@ -247,50 +228,27 @@ class ShardedRii:
                 "v_capacity": ((vstart[1:] - vstart[:-1])
                                * ul["cap_v"]).astype(np.int64),
             }
+            # uint8 code windows: the pq tier's store, and the bf16 tier's
+            # exact-rescore source (addressed by grouped slot, N*M bytes)
+            self.ivf["codes_g"] = codes_g
             if win_mode == "bf16":
-                # padding rows get the large sentinel the Pallas window kernel
-                # needs (its norms are derived in kernel; see ops/pallas_scan)
-                def _dec_sentinel(cg, cw_, og):
-                    dec = build_decoded_cache(cg, cw_, block=ul["cap_v"])
-                    return jnp.where((og < 0)[:, None], jnp.bfloat16(1e15), dec)
-
-                self.ivf["decoded_g"] = jax.jit(_dec_sentinel, out_shardings=sh)(
-                    codes_g, self.codewords, order_g)
-            elif win_mode == "i8":
-                # int8 windows (half the bf16 DMA bytes) + uint8 code windows
-                # for the exact rescore. Column scales derive from the
-                # CODEWORDS (decoded values are codebook entries, so the
-                # per-column max |codeword| bounds every row exactly) — no
-                # cross-shard collective needed to agree on scales.
-                col_scales = np.maximum(
-                    np.abs(cw).max(axis=1).reshape(-1), 1e-30) / 127.0
-                scales_repl = put_sharded(mesh, col_scales.astype(np.float32),
-                                          P())
-
-                def _quant(cg, cw_, scl):
-                    dec = build_decoded_cache(cg, cw_, block=ul["cap_v"])
-                    q = jnp.round(dec.astype(jnp.float32) / scl[None, :])
-                    return jnp.clip(q, -127, 127).astype(jnp.int8)
-
-                self.ivf["decoded_g_i8"] = jax.jit(
-                    _quant, out_shardings=sh)(codes_g, self.codewords,
-                                              scales_repl)
-                self.ivf["i8_scales"] = scales_repl
-                self.ivf["codes_g"] = codes_g
-                self.ivf["vlen_g"] = put_sharded(mesh, ul["vlen"],
-                                                 P(self._dim0))
-            else:
-                self.ivf["codes_g"] = codes_g
-                self.ivf["vlen_g"] = put_sharded(mesh, ul["vlen"], P(self._dim0))
-                if self._use_pallas():
-                    from rii_tpu.ops.pallas_scan import build_padded_codewords
-                    self.ivf["cw_padded"] = put_sharded(
-                        mesh, np.asarray(build_padded_codewords(cw)), P())
+                self.ivf["decoded_g"] = jax.jit(
+                    build_decoded_cache, static_argnames=("block",),
+                    out_shardings=sh)(codes_g, self.codewords,
+                                      block=ul["cap_v"])
         return self
 
-    def _use_pallas(self):
-        return (jax.default_backend() != "cpu"
-                and self.topk_recall is not None)
+    def _rescore(self, qn):
+        """Rii._resolve_rescore's policy: exact-f32 epilogue on the bf16
+        tiers, auto-on below the big-Q crossover (distances then match the
+        single-device engine's exactly)."""
+        mode = getattr(self, "exact_rescore", "auto")
+        return qn < _BIG_Q if mode == "auto" else bool(mode)
+
+    def _use_kernel(self):
+        """The fused replica kernel per shard: the engine's own decision."""
+        return (self.decoded is not None
+                and self.engine._use_replica_kernel(self.decoded.shape[1]))
 
     # ------------------------------------------------------------------ #
     # mutation (parity with Rii.add / Rii.reconfigure on the mesh)
@@ -381,13 +339,12 @@ class ShardedRii:
             # with Rii._apply_add_to_cache: models/ivf.append_placement)
             from rii_tpu.models.ivf import append_placement
             place = append_placement(assign, iv["v_counts"], iv["v_vstart"],
-                                     iv["cap_v"], iv["v_capacity"],
-                                     want_vlen="vlen_g" in iv)
+                                     iv["cap_v"], iv["v_capacity"])
             if place is None:
                 return False
 
         from rii_tpu.models.ivf import code_norms_np
-        from rii_tpu.rii import _decode_rows, _set_cols, _set_rows
+        from rii_tpu.rii import _decode_rows, _set_rows
         mesh = self.mesh
         cw = np.asarray(self.engine.codewords, dtype=np.float32)
         norms_new = code_norms_np(cw, codes)
@@ -397,14 +354,9 @@ class ShardedRii:
         self.codes = _set_rows(self.codes, idx, codes_j)
         self.norms = _set_rows(self.norms, idx, norms_j)
         dec_new = None
-        if (self.decoded is not None or self.decoded_t is not None
-                or (update_ivf and ("decoded_g" in iv
-                                    or "decoded_g_i8" in iv))):
+        if self.decoded is not None or (update_ivf and "decoded_g" in iv):
             dec_new = _decode_rows(codes_j, self.codewords)  # (k, D) bf16
-        if self.decoded_t is not None:
-            self.decoded_t = _set_cols(self.decoded_t, idx, dec_new.T)
-            self.norms_rep = _set_cols(self.norms_rep, idx, norms_j[None, :])
-        elif self.decoded is not None:
+        if self.decoded is not None:
             self.decoded = _set_rows(self.decoded, idx, dec_new)
 
         if update_ivf:
@@ -419,22 +371,9 @@ class ShardedRii:
             if "decoded_g" in iv:
                 iv["decoded_g"] = _set_rows(iv["decoded_g"], slots_j,
                                             jnp.take(dec_new, permj, axis=0))
-            elif "decoded_g_i8" in iv:
-                # re-quantize with the EXISTING replicated column scales
-                # (codeword-derived, so new rows cannot exceed them)
-                qg = jnp.clip(jnp.round(dec_new.astype(jnp.float32)
-                                        / iv["i8_scales"][None, :]),
-                              -127, 127).astype(jnp.int8)
-                iv["decoded_g_i8"] = _set_rows(iv["decoded_g_i8"], slots_j,
-                                               jnp.take(qg, permj, axis=0))
             if "codes_g" in iv:
                 iv["codes_g"] = _set_rows(iv["codes_g"], slots_j,
                                           jnp.take(codes_j, permj, axis=0))
-            if "vlen_g" in iv:
-                iv["vlen_g"] = _set_rows(
-                    iv["vlen_g"],
-                    put_sharded(mesh, place["wins"], P()),
-                    put_sharded(mesh, place["vls"], P()))
             iv["v_counts"] = place["new_counts"]
 
         self._n_dev = n0 + k
@@ -487,8 +426,8 @@ class ShardedRii:
             self.axes[1])
 
     def _scan_fn(self, topk, s_pad, rescore=False):
-        use_t = self.decoded_t is not None
-        key = (topk, self.decoded is not None, use_t, s_pad, rescore)
+        use_kernel = self._use_kernel()
+        key = (topk, self.decoded is not None, use_kernel, s_pad, rescore)
         if key in self._scan_cache:
             return self._scan_cache[key]
         shard_cap = self.cap // self.ndev
@@ -499,9 +438,9 @@ class ShardedRii:
         axes = self.axes
         two_level = len(axes) == 2
 
-        # chunking for collective/scan overlap: per-chunk caps must keep the
-        # transposed NN kernel's 16384-granule (or the XLA block granule)
-        gran = 16384 if use_t else min(blk, 1024)
+        # chunking for collective/scan overlap: per-chunk caps keep the
+        # block granule (a multiple of the kernel's 128-row tile)
+        gran = min(blk, 1024)
         # largest chunk count <= the requested one whose chunks keep the
         # granule (never MORE chunks/collectives than asked for)
         nchunks = 1
@@ -520,7 +459,7 @@ class ShardedRii:
         def _local(queries, codes_l, norms_l, codewords, dec_l, tids, nt):
             my = self._axis_index()
             qn = queries.shape[0]
-            ax1 = axes[-1]  # stage-1 gather axis: chips (ICI) when 2-D
+            ax1 = axes[-1]  # stage-1 gather axis: chips when 2-D
             parts_d, parts_g = [], []
             for c in range(nchunks):
                 lo = c * ck
@@ -541,13 +480,11 @@ class ShardedRii:
                 rs_codes = (lax.slice_in_dim(codes_l, lo, lo + ck)
                             if rescore else None)
                 rs_cw = codewords if rescore else None
-                if use_t:
-                    from rii_tpu.ops.pallas_scan import replica_scan_topk_t
-                    nr_c = norms_c[None, :]
-                    d_c, i_c = replica_scan_topk_t(
-                        queries, lax.slice_in_dim(dec_l, lo, lo + ck, axis=1),
-                        nr_c, topk=topk, codes=rs_codes, codewords=rs_cw,
-                        recall_target=rt)
+                if use_kernel:
+                    d_c, i_c = replica_scan_topk(
+                        queries, lax.slice_in_dim(dec_l, lo, lo + ck),
+                        norms_c, topk=topk, codes=rs_codes, codewords=rs_cw,
+                        recall_target=rt, interpret=self.engine._interp())
                 elif use_dec:
                     d_c, i_c = linear_scan_topk_decoded(
                         queries, lax.slice_in_dim(dec_l, lo, lo + ck),
@@ -560,8 +497,7 @@ class ShardedRii:
                         recall_target=rt)
                 g_c = jnp.where(i_c >= 0, i_c + my * shard_cap + lo, -1)
                 # stage-1 collective issued per chunk: independent of chunk
-                # c+1's scan, so XLA's scheduler overlaps them (rides ICI on
-                # a 2-D mesh)
+                # c+1's scan, so XLA's scheduler overlaps them
                 d_all = lax.all_gather(d_c, ax1)  # (n1, Q, k)
                 g_all = lax.all_gather(g_c, ax1)
                 parts_d.append(jnp.swapaxes(d_all, 0, 1).reshape(qn, -1))
@@ -569,8 +505,8 @@ class ShardedRii:
             d1, i1 = _merge_rows(jnp.concatenate(parts_d, axis=1),
                                  jnp.concatenate(parts_g, axis=1), topk)
             if two_level:
-                # stage 2: the cross-host (DCN) hop carries only the
-                # chip-stage winners — nhosts*topk rows per query
+                # stage 2: the cross-host hop carries only the chip-stage
+                # winners — nhosts*topk rows per query
                 d_all = lax.all_gather(d1, axes[0])  # (nhosts, Q, k)
                 g_all = lax.all_gather(i1, axes[0])
                 d1, i1 = _merge_rows(
@@ -578,20 +514,19 @@ class ShardedRii:
                     jnp.swapaxes(g_all, 0, 1).reshape(qn, -1), topk)
             return d1, i1
 
-        dec_spec = P(None, self._dim0) if use_t else P(self._dim0, None)
         fn = jax.jit(shard_map(
             _local,
             mesh=self.mesh,
             in_specs=(P(), P(self._dim0, None), P(self._dim0), P(),
-                      dec_spec, P(), P()),
+                      P(self._dim0, None), P(), P()),
             out_specs=(P(), P()),
             check_vma=False,
         ))
         self._scan_cache[key] = fn
         return fn
 
-    def _ivf_fn(self, topk, wv, s_pad):
-        key = ("ivf", topk, wv, s_pad)
+    def _ivf_fn(self, topk, wv, s_pad, rescore=False):
+        key = ("ivf", topk, wv, s_pad, rescore)
         if key in self._scan_cache:
             return self._scan_cache[key]
         iv = self.ivf
@@ -601,12 +536,8 @@ class ShardedRii:
         mode = iv["mode"]
         has_tids = s_pad is not None
 
-        # the fused window kernels need accelerator Mosaic lowering; subset
-        # masks ride them as the per-slot penalty stream (ops/pallas_scan.py)
-        use_pallas = self._use_pallas()
-
-        def _local(queries, store_l, aux_l, scl, norms_l, order_l, cdec_l,
-                   cnorm_l, vlen_l, cwp, codewords, tids, nt):
+        def _local(queries, store_l, codes_l, norms_l, order_l, cdec_l,
+                   cnorm_l, codewords, tids, nt):
             # DETERMINISTIC global probe selection: every shard scores its
             # local virtual centers, the scores are all-gathered, and each
             # query's GLOBAL top-wv window ids are computed identically on
@@ -643,9 +574,8 @@ class ShardedRii:
             if u_budget < pf.shape[0]:
                 # uniques-first stable compaction: every unique owned window
                 # (<= nv_l of them) survives the truncation. Re-sort the kept
-                # entries by (window, dup-last) — the window kernels' DMA-skip
-                # needs duplicates ADJACENT to their unique copy, and the
-                # uniques-first argsort interleaves them otherwise
+                # entries by (window, dup-last) so the union stays sorted
+                # with duplicates adjacent to their unique copy
                 keep = jnp.argsort(dup_all.astype(jnp.int32),
                                    stable=True)[:u_budget]
                 k2 = jnp.sort(flat_all[keep] * 2
@@ -658,29 +588,24 @@ class ShardedRii:
             if has_tids:
                 tm = _searchsorted_member(tids, nt, order_l)
             if mode == "bf16":
+                # exact-f32 rescore from the shard's grouped code windows
+                # (Rii.exact_rescore, resolved by the caller)
                 d_l, i_l = ivf_union_scan_topk(
                     queries, store_l, norms_l, order_l, cdec_l, cnorm_l,
                     w=min(wv, nv_l), topk=topk, cap_u=cap_v,
                     nlist_pad=nv_l, target_mask=tm, recall_target=rt,
-                    use_pallas=use_pallas, probes=(flat_l, dup_l))
-            elif mode == "i8":
-                from rii_tpu.ops.ivf import ivf_union_scan_topk_i8
-                d_l, i_l = ivf_union_scan_topk_i8(
-                    queries, store_l, scl, norms_l, order_l, aux_l,
-                    codewords, cdec_l, cnorm_l, w=min(wv, nv_l), topk=topk,
-                    cap_u=cap_v, nlist_pad=nv_l, vlen=vlen_l,
-                    target_mask=tm, recall_target=rt,
-                    interpret=not use_pallas, probes=(flat_l, dup_l),
+                    probes=(flat_l, dup_l),
+                    codes=codes_l if rescore else None,
+                    codewords=codewords if rescore else None,
                     codes_grouped=True)
             else:
                 d_l, i_l = ivf_union_scan_topk_pq(
                     queries, store_l, norms_l, order_l, codewords,
                     cdec_l, cnorm_l, w=min(wv, nv_l), topk=topk,
                     cap_u=cap_v, nlist_pad=nv_l, target_mask=tm,
-                    recall_target=rt, vlen=vlen_l, cw_padded=cwp,
-                    use_pallas=use_pallas, probes=(flat_l, dup_l))
+                    recall_target=rt, probes=(flat_l, dup_l))
             qn = queries.shape[0]
-            # staged merge: chip-axis (ICI) winners first, then the host hop
+            # staged merge: chip-axis winners first, then the host hop
             d_all = lax.all_gather(d_l, self.axes[-1])  # (n1, Q, k)
             g_all = lax.all_gather(i_l, self.axes[-1])
             d_flat = jnp.swapaxes(d_all, 0, 1).reshape(qn, -1)
@@ -701,10 +626,9 @@ class ShardedRii:
         fn = jax.jit(shard_map(
             _local,
             mesh=self.mesh,
-            in_specs=(P(), P(self._dim0, None), P(self._dim0, None), P(),
-                      P(self._dim0), P(self._dim0),
-                      P(self._dim0, None), P(self._dim0), P(self._dim0),
-                      P(), P(), P(), P()),
+            in_specs=(P(), P(self._dim0, None), P(self._dim0, None),
+                      P(self._dim0), P(self._dim0), P(self._dim0, None),
+                      P(self._dim0), P(), P(), P()),
             out_specs=(P(), P()),
             check_vma=False,
         ))
@@ -763,7 +687,7 @@ class ShardedRii:
         # same internal fallback as the single-chip engine: when the batch's
         # global probe union covers (most of) the database, the contiguous
         # linear scan is strictly faster and a candidate superset
-        union_slots = min(max(8, _pow2(qn)) * wv, iv["nlist_v"]) * iv["cap_v"]
+        union_slots = min(_pow2(qn) * wv, iv["nlist_v"]) * iv["cap_v"]
         if wv >= iv["nlist_v"] or 2 * union_slots >= self.cap:
             return self.query_batch(queries, topk=topk,
                                     target_ids=target_ids,
@@ -771,23 +695,18 @@ class ShardedRii:
                                     method="linear")
         queries = self._rotated(queries)
         tids, nt, s = self._prep_targets(target_ids, sort_target_ids)
-        qpad = _pow2(max(8, qn))  # >=8 for the fused window kernel
+        qpad = _pow2(qn)
         if qpad != qn:
             queries = np.concatenate(
                 [queries, np.broadcast_to(queries[:1], (qpad - qn,
                                                         queries.shape[1]))])
         zero = jnp.zeros((), jnp.int32)
-        store = {"bf16": iv.get("decoded_g"), "i8": iv.get("decoded_g_i8"),
-                 "pq": iv.get("codes_g")}[iv["mode"]]
-        aux = iv.get("codes_g", store)  # grouped codes (i8 rescore) or dummy
-        scl = iv.get("i8_scales", self.codewords)  # placeholder replicated
-        vlen = iv.get("vlen_g", iv["centers_norms_v"])  # placeholder sharded
-        cwp = iv.get("cw_padded", self.codewords)  # placeholder replicated
+        store = iv["decoded_g"] if iv["mode"] == "bf16" else iv["codes_g"]
         s_pad = None if tids is None else int(tids.shape[0])
-        d, i = self._ivf_fn(topk, wv, s_pad)(
-            jnp.asarray(queries), store, aux, scl, iv["norms_g"],
-            iv["order_g"], iv["centers_dec_v"], iv["centers_norms_v"], vlen,
-            cwp, self.codewords,
+        d, i = self._ivf_fn(topk, wv, s_pad, self._rescore(qpad))(
+            jnp.asarray(queries), store, iv["codes_g"], iv["norms_g"],
+            iv["order_g"],
+            iv["centers_dec_v"], iv["centers_norms_v"], self.codewords,
             tids if tids is not None else zero,
             nt if nt is not None else zero)
         return (np.asarray(i)[:qn].astype(np.int64),
@@ -819,19 +738,14 @@ class ShardedRii:
     def _query_linear_impl(self, queries, topk, target_ids, sort_target_ids):
         queries = self._rotated(queries)
         tids, nt, s = self._prep_targets(target_ids, sort_target_ids)
-        dec = self.decoded_t if self.decoded_t is not None else self.decoded
+        dec = self.decoded
         if dec is None:
             # pass a tiny placeholder with the right sharding
             dec = self.norms[:, None]
         zero = jnp.zeros((), jnp.int32)
         s_pad = None if tids is None else int(tids.shape[0])
-        # mirror Rii._resolve_rescore: exact-f32 epilogue on the bf16 tiers,
-        # auto-on below the big-Q crossover (distances then match the
-        # single-device engine's exactly)
-        mode = getattr(self, "exact_rescore", "auto")
-        rescore = (queries.shape[0] < _TN_MIN_Q) if mode == "auto" \
-            else bool(mode)
-        d, i = self._scan_fn(topk, s_pad, rescore=rescore)(
+        d, i = self._scan_fn(topk, s_pad,
+                             rescore=self._rescore(queries.shape[0]))(
             jnp.asarray(queries), self.codes, self.norms, self.codewords, dec,
             tids if tids is not None else zero,
             nt if nt is not None else zero)

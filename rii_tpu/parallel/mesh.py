@@ -19,8 +19,8 @@ def make_mesh(n_devices=None, axis_name=DATA_AXIS):
 
 
 def make_mesh_hc(n_hosts=None, n_chips=None):
-    """2-D ("hosts", "chips") mesh: the chip axis rides ICI (intra-host /
-    intra-slice), the host axis rides DCN. ShardedRii shards database rows
+    """2-D ("hosts", "chips") mesh: the chip axis rides the links within a
+    host, the host axis the network between hosts. ShardedRii shards rows
     over BOTH axes and stages its top-k merge chip-axis-first so the
     cross-host hop carries nhosts*topk rows instead of ndev*topk
     (SURVEY.md section 2.5 / BASELINE north star).

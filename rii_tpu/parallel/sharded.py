@@ -3,7 +3,7 @@ and a distributed PQk-means step (psum-reduced center statistics).
 
 This replaces the reference's OpenMP parallel-for over database points
 (/root/reference/src/rii.h:213, /root/reference/src/pqkmeans.cpp:88) with SPMD
-over a device mesh: XLA inserts the ICI collectives.
+over a device mesh: XLA inserts the collectives.
 """
 
 import jax

@@ -1,5 +1,5 @@
 """The user-facing Rii engine: full API parity with the reference's ``rii.Rii``
-(/root/reference/rii/rii.py) plus TPU-native batched query APIs.
+(/root/reference/rii/rii.py) plus batched query APIs.
 
 Responsibility split mirrors the reference (SURVEY.md section 1): this layer owns
 *policy* — codec management, OPQ query rotation, default nlist/L, auto
@@ -37,7 +37,9 @@ from rii_tpu.models.ivf import (
     posting_lists_from_assignments,
 )
 from rii_tpu.ops.decode import build_decoded_cache
+from rii_tpu.ops.replica_scan import kernel_supports, replica_scan_topk
 from rii_tpu.ops.scan import (
+    _BIG_Q,
     linear_scan_topk,
     linear_scan_topk_decoded,
     subset_scan_topk,
@@ -47,19 +49,7 @@ from rii_tpu.ops.ivf import (
     ivf_scan_topk,
     ivf_scan_topk_decoded,
     ivf_union_scan_topk,
-    ivf_union_scan_topk_i8,
     ivf_union_scan_topk_pq,
-)
-from rii_tpu.ops.pallas_scan import (
-    _TN_MIN_Q,
-    pq_scan_topk_t,
-    prepare_pq_scan_inputs_t,
-    prepare_replica_t,
-    quantize_replica_i8,
-    replica_i8_scan_topk,
-    replica_i8_scan_topk_t,
-    replica_scan_topk,
-    replica_scan_topk_t,
 )
 
 _RECONFIGURE_SAMPLE_SEED = 123  # mirrors std::default_random_engine(123), src/rii.h:122
@@ -87,10 +77,10 @@ def _pow2_at_least(n, lo=1):
     return v
 
 
-def _pad_queries(queries, lo=1):
-    """Pad the query batch to a power-of-two bucket >= lo (repeat row 0)."""
+def _pad_queries(queries):
+    """Pad the query batch to a power-of-two bucket (repeat row 0)."""
     qn = queries.shape[0]
-    bucket = _pow2_at_least(qn, lo)
+    bucket = _pow2_at_least(qn)
     if bucket == qn:
         return queries, qn
     pad = np.broadcast_to(queries[:1], (bucket - qn, queries.shape[1]))
@@ -103,18 +93,6 @@ def _pad_queries(queries, lo=1):
 @partial(jax.jit, donate_argnums=(0,))
 def _set_rows(arr, idx, rows):
     return arr.at[idx].set(rows)
-
-
-@partial(jax.jit, donate_argnums=(0,))
-def _set_cols(arr, idx, cols):
-    return arr.at[:, idx].set(cols)
-
-
-@partial(jax.jit, donate_argnums=(0,))
-def _set_flat(arr, idx, vals):
-    """Scatter into an N-D array by FLAT index (row-major reshape is a
-    layout no-op, so donation still updates in place)."""
-    return arr.reshape(-1).at[idx].set(vals).reshape(arr.shape)
 
 
 class _RWLock:
@@ -200,8 +178,30 @@ def _decode_rows(codes, codewords):
         jnp.bfloat16)
 
 
+def platform():
+    """Platform of the default device ("gpu", "cpu", ...): the one input
+    to kernel and tier choice."""
+    return jax.devices()[0].platform
+
+
+_NO_LIMIT_BUDGET = 2 << 30
+
+
+def default_cache_budget(device=None):
+    """Replica budget in bytes: half of what the device's allocator may
+    hold (``memory_stats()["bytes_limit"]``), or 2 GiB where the device
+    reports no limit (the CPU)."""
+    device = device or jax.devices()[0]
+    try:
+        stats = device.memory_stats() or {}
+    except Exception:  # backends without allocator statistics
+        stats = {}
+    limit = stats.get("bytes_limit")
+    return int(limit) // 2 if limit else _NO_LIMIT_BUDGET
+
+
 class Rii:
-    """Reconfigurable inverted index over PQ codes, TPU-native.
+    """Reconfigurable inverted index over PQ codes.
 
     Args:
         fine_quantizer: a trained :class:`rii_tpu.PQ` or :class:`rii_tpu.OPQ`.
@@ -217,17 +217,19 @@ class Rii:
         assert fine_quantizer.Ks <= 256, "Ks must be <= 256 so that each code is uint8"
         self.fine_quantizer = copy.deepcopy(fine_quantizer)
         self.threshold = None
-        # Linear-scan storage mode: "pq" scans uint8 codes (decode fused into the
-        # kernel; N*M bytes), "bf16" additionally keeps a decoded bf16 replica
-        # (pure-GEMM scan at HBM/MXU roofline; +N*D*2 bytes), "auto" picks bf16
-        # on TPU when the replica fits decoded_cache_budget. Distances are exact
-        # ADC either way (cross term bf16 in the replica mode).
+        # Linear-scan storage mode: "pq" scans uint8 codes (N*M bytes, decoded
+        # per block), "bf16" additionally keeps a decoded bf16 replica (one
+        # GEMM per block; +N*D*2 bytes), "auto" picks bf16 on the GPU when the
+        # replica fits the budget. "int8" is accepted (older checkpoints) and
+        # resolves as "bf16". Distances are exact ADC either way (cross term
+        # bf16 in the replica mode).
         self.scan_mode = "auto"
-        self.decoded_cache_budget = 2 << 30
-        # Per-block top-k recall target (hardware PartialReduce). The final
-        # cross-block merge is exact; None = bit-exact selection everywhere
-        # (exact lax.top_k costs ~30x the scoring GEMM on TPU). On CPU the
-        # approx path lowers to an exact sort, so tests are exact regardless.
+        # replica budget in bytes; None = default_cache_budget() of the device
+        self.decoded_cache_budget = None
+        # Per-block top-k recall target (lax.approx_max_k; an exact top-k
+        # where the platform has no hardware partial-reduce, GPU and CPU
+        # included). The final cross-block merge is exact; None = bit-exact
+        # selection everywhere and no fused kernel.
         self.topk_recall = 0.99
         # IVF probe-selection recall: "inherit" ties it to topk_recall
         # (approx probes in the fast mode). A missed probe drops a WHOLE
@@ -237,11 +239,9 @@ class Rii:
         # RECALL_PARITY.md).
         self.probe_recall = "inherit"
         # Exact-f32 rescore of the final overfetched candidates on the bf16
-        # tiers (the int8 tiers always rescore — they must, to recover from
-        # quantization). "auto" = on below the big-Q crossover (_TN_MIN_Q),
-        # where the topk*2*Q-row codes gather is ~free; at Q=1024 it costs
-        # ~0.9 ms (XLA row-gather degradation, ROADMAP 4c), so big batches
-        # keep the documented bf16 accuracy class. True/False force it.
+        # tier. "auto" = on below the big-Q crossover (ops/scan._BIG_Q, not
+        # yet measured on the GPU: ROADMAP S2f); big batches keep the
+        # documented bf16 accuracy class. True/False force it.
         self.exact_rescore = "auto"
         self._verbose = bool(fine_quantizer.verbose)
         self._code_chunks = []  # list of (n_i, M) uint8
@@ -260,7 +260,7 @@ class Rii:
         self._cap_reserve = 0  # see reserve()
         # serializes cold-cache builds: QueryServer's dispatcher pool calls
         # query_batch concurrently, and two racing _ensure_cache builds would
-        # transiently double device memory and duplicate remote compiles
+        # transiently double device memory and duplicate compiles
         self._cache_lock = threading.Lock()
         # queries shared / mutations exclusive (see _RWLock docstring)
         self._state_lock = _RWLock()
@@ -388,7 +388,7 @@ class Rii:
             self._layout_v = None
             self._bump()
         # per-stage breakdown of the last reconfigure (metrics parity with
-        # the reference's verbose prints; SIFT1B_SHAPE.md uses it)
+        # the reference's verbose prints)
         self.last_reconfigure_stats = stats
         if self._verbose:
             print("reconfigure stages:",
@@ -552,8 +552,7 @@ class Rii:
             # placement + capacity check BEFORE mutating anything (shared
             # with the sharded delta-add: models/ivf.append_placement)
             place = append_placement(assign, dc["v_counts"], dc["v_vstart"],
-                                     dc["cap_v"], dc["v_capacity"],
-                                     want_vlen="vlen_g" in dc)
+                                     dc["cap_v"], dc["v_capacity"])
             if place is None:
                 return False
 
@@ -565,33 +564,10 @@ class Rii:
         dc["codes_flat"] = _set_rows(dc["codes_flat"], idx, codes_j)
         dc["norms_flat"] = _set_rows(dc["norms_flat"], idx, norms_j)
         dec_new = None
-        if ("decoded_t" in dc or "decoded_flat" in dc or "decoded_i8_t" in dc
-                or "decoded_i8" in dc or "decoded_g" in dc
-                or "decoded_g_i8" in dc):
+        if "decoded_flat" in dc or "decoded_g" in dc:
             dec_new = _decode_rows(codes_j, dc["codewords"])  # (k, D) bf16
-        if "decoded_t" in dc:
-            dc["decoded_t"] = _set_cols(dc["decoded_t"], idx, dec_new.T)
-            dc["norms_rep"] = _set_cols(dc["norms_rep"], idx,
-                                        norms_j[None, :])
         if "decoded_flat" in dc:
             dc["decoded_flat"] = _set_rows(dc["decoded_flat"], idx, dec_new)
-        if "decoded_i8_t" in dc or "decoded_i8" in dc:
-            # re-quantize with the EXISTING column scales (clipped): new rows
-            # beyond the old per-column maxima lose a little selection
-            # precision until the next rebuild — the exact rescore absorbs it
-            q_i8 = jnp.clip(jnp.round(dec_new.astype(jnp.float32)
-                                      / dc["i8_scales"][None, :]),
-                            -127, 127).astype(jnp.int8)
-            if "decoded_i8_t" in dc:
-                dc["decoded_i8_t"] = _set_cols(dc["decoded_i8_t"], idx, q_i8.T)
-                dc["norms_rep"] = _set_cols(dc["norms_rep"], idx,
-                                            norms_j[None, :])
-            else:
-                dc["decoded_i8"] = _set_rows(dc["decoded_i8"], idx, q_i8)
-        if "pallas_codes_t" in dc:
-            dc["pallas_codes_t"] = _set_cols(dc["pallas_codes_t"], idx,
-                                             codes_j.T)
-            dc["pallas_norms2"] = _set_flat(dc["pallas_norms2"], idx, norms_j)
 
         if update_ivf:
             perm = place["perm"]
@@ -603,20 +579,10 @@ class Rii:
             if "decoded_g" in dc:
                 dc["decoded_g"] = _set_rows(dc["decoded_g"], slots_j,
                                             dec_new[jnp.asarray(perm)])
-            elif "decoded_g_i8" in dc:
-                qg = jnp.clip(jnp.round(dec_new.astype(jnp.float32)
-                                        / dc["i8_scales_g"][None, :]),
-                              -127, 127).astype(jnp.int8)
-                dc["decoded_g_i8"] = _set_rows(dc["decoded_g_i8"], slots_j,
-                                               qg[jnp.asarray(perm)])
             if "codes_g" in dc:
                 dc["codes_g"] = _set_rows(dc["codes_g"], slots_j,
                                           codes_j[jnp.asarray(perm)])
             dc["v_counts"] = place["new_counts"]
-            if "vlen_g" in dc:
-                dc["vlen_g"] = _set_rows(dc["vlen_g"],
-                                         jnp.asarray(place["wins"]),
-                                         jnp.asarray(place["vls"]))
             # the legacy tight-packed grouped layout has no spare capacity;
             # drop it (dead for querying — the union layout always exists).
             # cap_max included: it is _ensure_legacy_grouped's built sentinel
@@ -647,7 +613,7 @@ class Rii:
 
     def query_batch(self, queries, topk=1, L=None, target_ids=None,
                     sort_target_ids=True, method="auto"):
-        """Batched ANN search — the TPU-native entry point.
+        """Batched ANN search — the device-batched entry point.
 
         Same policy as :meth:`query` applied to (Q, D) queries sharing one
         target-id set. Returns (ids (Q, topk) int64, dists (Q, topk) float64).
@@ -733,7 +699,7 @@ class Rii:
         """Exact-rescore policy for the bf16 tiers (see __init__)."""
         mode = getattr(self, "exact_rescore", "auto")
         if mode == "auto":
-            return qn < _TN_MIN_Q
+            return qn < _BIG_Q
         return bool(mode)
 
     def _query_linear_batch(self, queries, topk, tids):
@@ -742,112 +708,12 @@ class Rii:
         qd = jnp.asarray(qp)
         decoded = dc.get("decoded_flat")
         rt = getattr(self, "topk_recall", None)
-        use_pallas_replica = decoded is not None and self._use_pallas_scan()
-        # exact-f32 rescore epilogue on the bf16 tiers: pass the codes so the
+        # exact-f32 rescore epilogue on the bf16 tier: pass the codes so the
         # scan overfetches and re-ranks exactly (None = selection-only)
         rs = self._resolve_rescore(qd.shape[0])
         rs_codes = dc["codes_flat"] if rs else None
         rs_cw = dc["codewords"] if rs else None
-        if tids is None:
-            if "decoded_i8_t" in dc:
-                d, i = replica_i8_scan_topk_t(
-                    qd, dc["decoded_i8_t"], dc["i8_scales"], dc["norms_rep"],
-                    dc["codes_flat"], dc["codewords"], topk=topk,
-                    recall_target=rt, interpret=self._interp())
-            elif "decoded_i8" in dc:
-                d, i = replica_i8_scan_topk(
-                    qd, dc["decoded_i8"], dc["i8_scales"],
-                    dc["norms_flat"][:, None], dc["codes_flat"],
-                    dc["codewords"], topk=topk, blk=min(8192, dc["cap"]),
-                    recall_target=rt)
-            elif "decoded_t" in dc:
-                d, i = replica_scan_topk_t(qd, dc["decoded_t"],
-                                           dc["norms_rep"], topk=topk,
-                                           codes=rs_codes, codewords=rs_cw,
-                                           recall_target=rt,
-                                           interpret=self._interp())
-            elif use_pallas_replica:
-                d, i = replica_scan_topk(qd, decoded, dc["norms_flat"][:, None],
-                                         topk=topk, codes=rs_codes,
-                                         codewords=rs_cw,
-                                         blk=min(8192, dc["cap"]),
-                                         recall_target=rt)
-            elif decoded is not None:
-                d, i = linear_scan_topk_decoded(qd, decoded, dc["norms_flat"],
-                                                topk=topk, codes=rs_codes,
-                                                codewords=rs_cw,
-                                                block=dc["block_dec"],
-                                                recall_target=rt)
-            elif "pallas_codes_t" in dc:
-                d, i = pq_scan_topk_t(qd, dc["pallas_codes_t"],
-                                      dc["pallas_norms2"], dc["pallas_cw"],
-                                      topk=topk, recall_target=rt,
-                                      interpret=self._interp())
-            else:
-                d, i = linear_scan_topk(qd, dc["codes_flat"], dc["norms_flat"],
-                                        dc["codewords"], topk=topk,
-                                        block=dc["block"], recall_target=rt)
-        elif len(tids) > 4096:
-            # mid/large subsets: masked full scan (flat cost ~ one scan) beats
-            # row gathers, whose XLA lowering degrades badly at 10k-100k rows
-            mask = np.zeros(dc["cap"], dtype=bool)
-            mask[np.clip(tids, 0, dc["cap"] - 1)] = True
-            if "decoded_i8_t" in dc:
-                norms_m = jnp.where(jnp.asarray(mask), dc["norms_flat"],
-                                    jnp.inf)
-                nr_m = jnp.asarray(norms_m[None, :])
-                d, i = replica_i8_scan_topk_t(
-                    qd, dc["decoded_i8_t"], dc["i8_scales"], nr_m,
-                    dc["codes_flat"], dc["codewords"], topk=topk,
-                    recall_target=rt, interpret=self._interp())
-            elif "decoded_i8" in dc:
-                norms_col = np.asarray(dc["norms_flat"]).copy()
-                norms_col[~mask] = np.inf
-                d, i = replica_i8_scan_topk(
-                    qd, dc["decoded_i8"], dc["i8_scales"],
-                    jnp.asarray(norms_col[:, None]), dc["codes_flat"],
-                    dc["codewords"], topk=topk, blk=min(8192, dc["cap"]),
-                    recall_target=rt)
-            elif "decoded_t" in dc:
-                # fold the subset mask into the replicated norms stream (the
-                # rescore reads the same masked norms, so exclusion holds)
-                norms_m = jnp.where(jnp.asarray(mask), dc["norms_flat"],
-                                    jnp.inf)
-                d, i = replica_scan_topk_t(qd, dc["decoded_t"],
-                                           jnp.asarray(norms_m[None, :]),
-                                           topk=topk, codes=rs_codes,
-                                           codewords=rs_cw, recall_target=rt,
-                                           interpret=self._interp())
-            elif use_pallas_replica:
-                norms_col = np.asarray(dc["norms_flat"]).copy()
-                norms_col[~mask] = np.inf
-                d, i = replica_scan_topk(qd, decoded,
-                                         jnp.asarray(norms_col[:, None]),
-                                         topk=topk, codes=rs_codes,
-                                         codewords=rs_cw,
-                                         blk=min(8192, dc["cap"]),
-                                         recall_target=rt)
-            elif decoded is not None:
-                d, i = linear_scan_topk_decoded(qd, decoded, dc["norms_flat"],
-                                                topk=topk, codes=rs_codes,
-                                                codewords=rs_cw,
-                                                mask=jnp.asarray(mask),
-                                                block=dc["block_dec"],
-                                                recall_target=rt)
-            elif "pallas_codes_t" in dc:
-                # fold the subset mask into the norms stream (+inf = excluded)
-                norms2 = np.asarray(dc["pallas_norms2"]).copy()
-                norms2.reshape(-1)[~mask] = np.inf
-                d, i = pq_scan_topk_t(qd, dc["pallas_codes_t"],
-                                      jnp.asarray(norms2), dc["pallas_cw"],
-                                      topk=topk, recall_target=rt,
-                                      interpret=self._interp())
-            else:
-                d, i = linear_scan_topk(qd, dc["codes_flat"], dc["norms_flat"],
-                                        dc["codewords"], topk=topk,
-                                        mask=jnp.asarray(mask),
-                                        block=dc["block"], recall_target=rt)
-        else:
+        if tids is not None and len(tids) <= 4096:
             s = len(tids)
             s_pad = _pow2_at_least(s, 16)
             tids_pad = np.zeros(s_pad, dtype=np.int32)
@@ -862,6 +728,32 @@ class Rii:
                 d, i = subset_scan_topk(qd, dc["codes_flat"], dc["norms_flat"],
                                         dc["codewords"], jnp.asarray(tids_pad),
                                         jnp.int32(s), topk=topk)
+            return np.asarray(i)[:qn], np.asarray(d)[:qn]
+        mask = None
+        if tids is not None:
+            # mid/large subsets: masked full scan (flat cost ~ one scan)
+            # instead of row gathers of 10k-100k rows
+            m = np.zeros(dc["cap"], dtype=bool)
+            m[np.clip(tids, 0, dc["cap"] - 1)] = True
+            mask = jnp.asarray(m)
+        if decoded is not None and self._use_replica_kernel(decoded.shape[1]):
+            norms = dc["norms_flat"]
+            if mask is not None:  # the kernel reads the mask as +inf norms
+                norms = jnp.where(mask, norms, jnp.inf)
+            d, i = replica_scan_topk(qd, decoded, norms, topk=topk,
+                                     codes=rs_codes, codewords=rs_cw,
+                                     recall_target=rt,
+                                     interpret=self._interp())
+        elif decoded is not None:
+            d, i = linear_scan_topk_decoded(qd, decoded, dc["norms_flat"],
+                                            topk=topk, codes=rs_codes,
+                                            codewords=rs_cw, mask=mask,
+                                            block=dc["block_dec"],
+                                            recall_target=rt)
+        else:
+            d, i = linear_scan_topk(qd, dc["codes_flat"], dc["norms_flat"],
+                                    dc["codewords"], topk=topk, mask=mask,
+                                    block=dc["block"], recall_target=rt)
         return np.asarray(i)[:qn], np.asarray(d)[:qn]
 
     def _probe_width(self, L, s):
@@ -882,12 +774,8 @@ class Rii:
 
     def _query_ivf_batch(self, queries, topk, tids, L, force_full=False):
         dc = self._ensure_cache()
-        # the fused window kernels handle subsets too: the target mask rides
-        # as a per-slot 0/+inf penalty stream (ops/pallas_scan.py)
-        has_union = ("decoded_g" in dc or "decoded_g_i8" in dc
-                     or "codes_g" in dc)
-        use_pallas_ivf = has_union and self._use_pallas_scan()
-        qp, qn = _pad_queries(queries, lo=8 if use_pallas_ivf else 1)
+        has_union = "decoded_g" in dc or "codes_g" in dc
+        qp, qn = _pad_queries(queries)
         qd = jnp.asarray(qp)
         s = None if tids is None else len(tids)
         w = self.nlist if force_full else self._probe_width(L, s)
@@ -902,8 +790,8 @@ class Rii:
         probe_full = w >= self.nlist
         if has_union:
             # union-bucket batched probe over the balanced virtual-bucket
-            # replica: windows DMA'd contiguously, scored for the batch in one
-            # MXU GEMM (ops/ivf.py::ivf_union_scan_topk). Probe width is in
+            # replica: windows copied contiguously, scored for the batch in
+            # one GEMM (ops/ivf.py::ivf_union_scan_topk). Probe width is in
             # VIRTUAL buckets, matching the reference's candidate budget:
             # its w = round(L*nlist/N_or_S)+3 full lists scan ~ (L*N/S + 3*L0)
             # members (src/rii.h:267-277), so the +3-list slack becomes
@@ -915,9 +803,10 @@ class Rii:
             union_slots = min(qd.shape[0] * wv, dc["nlist_v"]) * dc["cap_v"]
             if probe_full or 2 * union_slots >= dc["cap"]:
                 # the batch's probe union covers (most of) the database: the
-                # contiguous-stream linear scan reads every row at ~2x the
-                # window scan's effective bandwidth, so it wins before full
-                # coverage; semantics stay a candidate superset of the probes
+                # contiguous-stream linear scan reads every row once, so it is
+                # taken before full coverage (crossover not yet measured on
+                # the GPU: ROADMAP S2g); semantics stay a candidate superset
+                # of the probes
                 return self._query_linear_batch(queries, topk, tids)
             tm = None
             if tids is not None:
@@ -926,45 +815,23 @@ class Rii:
                 tm = jnp.take(jnp.asarray(mask),
                               jnp.clip(dc["order_g"], 0, dc["cap"] - 1))
             if "decoded_g" in dc:
-                # the window kernel amortizes its per-copy cost only on big
-                # unions; the XLA gather path wins below ~2k windows
-                # (measured: U=512 0.19 vs 0.29 ms, U=4096 2.8 vs 1.8 ms)
-                u_est = min(qd.shape[0] * wv, dc["nlist_v_pad"])
                 rs = self._resolve_rescore(qd.shape[0])
                 d, i = ivf_union_scan_topk(
                     qd, dc["decoded_g"], dc["norms_g"], dc["order_g"],
                     dc["centers_dec_v"], dc["centers_norms_v"], w=wv,
                     topk=topk, cap_u=dc["cap_v"], nlist_pad=dc["nlist_v_pad"],
                     target_mask=tm, recall_target=rt,
-                    use_pallas=use_pallas_ivf and u_est >= 2048,
-                    interpret=self._interp(),
                     probe_recall=getattr(self, "probe_recall", "inherit"),
                     codes=dc["codes_flat"] if rs else None,
                     codewords=dc["codewords"] if rs else None)
-            elif "decoded_g_i8" in dc:
-                # int8 windows: half the bf16 DMA traffic; exact rescore from
-                # the uint8 codes (ops/ivf.ivf_union_scan_topk_i8)
-                d, i = ivf_union_scan_topk_i8(
-                    qd, dc["decoded_g_i8"], dc["i8_scales_g"], dc["norms_g"],
-                    dc["order_g"], dc["codes_flat"], dc["codewords"],
-                    dc["centers_dec_v"], dc["centers_norms_v"], w=wv,
-                    topk=topk, cap_u=dc["cap_v"], nlist_pad=dc["nlist_v_pad"],
-                    vlen=dc.get("vlen_g"), target_mask=tm, recall_target=rt,
-                    interpret=self._interp(),
-                    probe_recall=getattr(self, "probe_recall", "inherit"))
             else:
-                # memory-lean: uint8 code windows, decoded in-flight (in VMEM
-                # via the fused kernel on hardware)
-                use_pq_pallas = (self._use_pallas_scan()
-                                 and "pallas_cw" in dc)
+                # memory-lean: uint8 code windows, decoded in flight
                 d, i = ivf_union_scan_topk_pq(
                     qd, dc["codes_g"], dc["norms_g"], dc["order_g"],
                     dc["codewords"], dc["centers_dec_v"],
                     dc["centers_norms_v"], w=wv, topk=topk, cap_u=dc["cap_v"],
                     nlist_pad=dc["nlist_v_pad"], target_mask=tm,
-                    recall_target=rt, vlen=dc.get("vlen_g"),
-                    cw_padded=dc.get("pallas_cw"), use_pallas=use_pq_pallas,
-                    interpret=self._interp(),
+                    recall_target=rt,
                     probe_recall=getattr(self, "probe_recall", "inherit"))
         elif "decoded_flat" in dc:
             # fully query-batched probe over the bf16 replica
@@ -1001,12 +868,13 @@ class Rii:
     def _use_linear(self, len_target_ids, L, qn=1):
         if len_target_ids <= self.threshold(L):
             return True
-        # TPU cost-model guard (what the reference's *measured* calibration
+        # Cost-model guard (what the reference's *measured* calibration
         # would discover). With the union-bucket scan, an IVF batch streams
         # min(Q*wv, nlist_v)*cap_v replica rows; the linear scan streams all
-        # cap rows once for the whole batch. Window reads cost ~1.5x a
-        # straight-line stream, so prefer linear when the IVF row volume is
-        # not clearly below the full scan.
+        # cap rows once for the whole batch, and a window read costs more
+        # than a straight-line one, so prefer linear when the IVF row volume
+        # is not clearly below the full scan. The rule is not yet measured on
+        # the GPU (ROADMAP S2g).
         dc = self._dc
         s = None if len_target_ids >= self._n else len_target_ids
         if dc is not None and "nlist_v" in dc:
@@ -1014,10 +882,9 @@ class Rii:
             rows = min(qn * wv, dc["nlist_v"]) * dc["cap_v"]
             # aligned with _query_ivf_batch's internal linear fallback
             # (2 * union_slots >= cap): if the ivf path would switch to the
-            # contiguous scan anyway, pick linear up front (AUTO_POLICY.md
-            # validates auto <= 1.2x the better method across the grid)
+            # contiguous scan anyway, pick linear up front
             return 2 * rows >= dc["cap"]
-        # legacy gather path: a gathered row costs ~8x a streamed one
+        # legacy gather path: a gathered row is taken to cost 8 streamed ones
         w = self._probe_width(L, s)
         cap_max = self.L0 * 2 if self.L0 else 1
         if dc is not None and "cap_max" in dc:
@@ -1046,56 +913,40 @@ class Rii:
     def _use_decoded_cache(self, cap):
         return self._resolve_scan_mode(cap) == "bf16"
 
+    def _cache_budget(self):
+        """Replica bytes allowed on the device (see __init__)."""
+        budget = getattr(self, "decoded_cache_budget", None)
+        return default_cache_budget() if budget is None else int(budget)
+
     def _resolve_scan_mode(self, cap):
         """Resolve scan_mode ('auto'|'pq'|'bf16'|'int8') to a concrete mode.
 
         bf16: decoded replica (+cap*D*2 bytes), fastest, exact-ADC distances.
-        int8: quantized replica (+cap*D bytes), int8 MXU scan with exact
-              top-k rescoring; needs the Pallas path (accelerator).
         pq:   uint8 codes only.
+        'int8' (kept by older checkpoints) resolves as 'bf16'. 'auto' keeps
+        the replica on the GPU only: XLA:CPU scans the codes as fast.
         """
         mode = getattr(self, "scan_mode", "auto")
-        if mode == "pq":
+        if mode == "pq" or (mode == "auto" and platform() != "gpu"):
             return "pq"
-        import jax
-        on_accel = jax.default_backend() != "cpu"
         d = self.M * self.fine_quantizer.Ds
-        budget = getattr(self, "decoded_cache_budget", 2 << 30)
-        fits_bf16 = cap * d * 2 <= budget
-        fits_i8 = cap * d <= budget
-        if mode == "bf16":
-            return "bf16" if fits_bf16 else "pq"
-        if mode == "int8":
-            if fits_i8 and self._use_pallas_scan():
-                return "int8"
-            return "bf16" if fits_bf16 else "pq"
-        # auto: replica only pays off on accelerators (XLA:CPU handles the
-        # one-hot decode fine; on TPU it would materialize huge intermediates)
-        if not on_accel:
-            return "pq"
-        if fits_bf16:
-            return "bf16"
-        if fits_i8 and self._use_pallas_scan():
-            return "int8"
-        return "pq"
+        return "bf16" if cap * d * 2 <= self._cache_budget() else "pq"
 
-    def _use_pallas_scan(self):
-        """Fused uint8 Pallas scan: the pq-mode fast path on accelerators.
+    def _use_replica_kernel(self, d):
+        """Fused replica kernel (ops/replica_scan.py) for a D-wide replica:
+        on the GPU only, and for power-of-two D (kernel_supports).
 
         Slightly approximate selection (one candidate per 128-slot tile), same
         accuracy class as topk_recall=0.99 — so it is disabled when the user
         asks for bit-exact selection (topk_recall=None).
 
-        `pallas_interpret=True` (a test hook) forces the full TPU kernel path
-        graph on CPU via Pallas interpret mode, so CI exercises the exact
-        code the accelerator runs.
+        `pallas_interpret=True` (a test hook) runs the kernel on CPU through
+        Pallas interpret mode, so CI exercises the code the GPU runs.
         """
-        if getattr(self, "topk_recall", None) is None:
+        if getattr(self, "topk_recall", None) is None or not kernel_supports(d):
             return False
-        if getattr(self, "pallas_interpret", False):
-            return True
-        import jax
-        return jax.default_backend() != "cpu"
+        return (bool(getattr(self, "pallas_interpret", False))
+                or platform() == "gpu")
 
     def _interp(self):
         return bool(getattr(self, "pallas_interpret", False))
@@ -1163,39 +1014,9 @@ class Rii:
         resolved = self._resolve_scan_mode(cap)
         dc["mode"] = resolved
         if resolved == "bf16":
-            if self._use_pallas_scan():
-                # accelerator: TRANSPOSED replica (D, cap) — database rows are
-                # MXU output columns so all MXUs engage at any Q; the scan is
-                # DMA-bound (~82% of HBM roofline at Q=128, see
-                # ops/pallas_scan.py transposed-replica block comment)
-                decoded = build_decoded_cache(dc["codes_flat"], dc["codewords"])
-                dc["decoded_t"], dc["norms_rep"] = prepare_replica_t(
-                    decoded, dc["norms_flat"])
-                del decoded
-            else:
-                dc["decoded_flat"] = build_decoded_cache(dc["codes_flat"],
-                                                         dc["codewords"])
-        elif resolved == "int8":
-            decoded = build_decoded_cache(dc["codes_flat"], dc["codewords"])
-            dec_i8, dc["i8_scales"] = quantize_replica_i8(decoded)
-            if self._use_pallas_scan():
-                # transposed int8 replica: half the bf16-T HBM traffic on the
-                # selection pass (exact rescore restores accuracy)
-                dc["decoded_i8_t"] = jnp.transpose(dec_i8)
-                dc["norms_rep"] = jnp.asarray(dc["norms_flat"][None, :])
-            else:
-                dc["decoded_i8"] = dec_i8
-            del decoded
-        elif self._use_pallas_scan():
-            # memory-lean TPU path: fused TRANSPOSED Pallas scan over uint8
-            # codes — codes (M, cap), norms (nb, nsub, sub): the row-major
-            # (cap, M)/(cap, 1) operands' tiled layouts padded 16x/128x and
-            # OOM'd the 32M-row compile (SIFT1B-shape finding, round 4)
-            codes_t, norms2, cwt = prepare_pq_scan_inputs_t(
-                codes, norms, cw, cap=cap)
-            dc["pallas_codes_t"] = codes_t
-            dc["pallas_norms2"] = norms2
-            dc["pallas_cw"] = cwt
+            # one row-major (cap, D) replica serves the fused kernel and XLA
+            dc["decoded_flat"] = build_decoded_cache(dc["codes_flat"],
+                                                     dc["codewords"])
         stats["replica_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         if self._centers is not None:
@@ -1219,15 +1040,14 @@ class Rii:
             # the first-query host layout cost in half at the SIFT1B shape
             # balanced virtual-bucket layout for the union-bucket IVF scan:
             # big buckets split into cap_v-slot windows, each window a
-            # contiguous DMA, probe width scaled by nlist_v. bf16 mode keeps a
-            # decoded window replica (gated on the decoded-cache budget);
-            # pq/int8 modes keep uint8 code windows and decode in-flight
+            # contiguous copy, probe width scaled by nlist_v. bf16 mode keeps a
+            # decoded window replica (gated on the replica budget); pq mode
+            # keeps uint8 code windows and decodes in flight
             # (ivf_union_scan_topk_pq) — N*M bytes, no budget gate needed.
             # cap_v=256 keeps probe granularity FINER than whole lists, which
             # buys probe diversity: at equal candidate budget, 256-slot
-            # windows measured recall@10 0.705 vs 0.641 for 1024-slot windows
-            # (which are ~1.4x faster, DMA-issue-bound) — recall parity with
-            # the reference wins the tie
+            # windows recalled more than 1024-slot ones (recall@10 0.705 vs
+            # 0.641) — recall parity with the reference wins over speed
             # 12.5% per-bucket headroom reserves spare window slots so
             # incremental adds place new rows in O(batch) (see
             # _apply_add_to_cache) instead of rebuilding the layout; a
@@ -1252,7 +1072,7 @@ class Rii:
                 ul = {
                     "order": order, "codes_grouped": codes_grouped,
                     "norms_grouped": norms_grouped, "vreal": lv["vreal"],
-                    "vlen": lv["vlen"], "vstart": lv["vstart"],
+                    "vstart": lv["vstart"],
                     "counts": lv["counts"], "cap_v": int(lv["cap_v"]),
                     "nlist_v": int(lv["nlist_v"]),
                     "nlist_v_pad": int(lv["nlist_v_pad"]), "total": int(total),
@@ -1283,54 +1103,23 @@ class Rii:
                                * ul["cap_v"]).astype(np.int64),
             })
             d_dim = self.M * cw.shape[2]
-            # gate the COMBINED footprint: the linear replica (decoded_flat /
-            # decoded_t / int8, cap rows) already holds its bytes, so window
-            # replicas are only added if the sum stays inside the budget
-            # (otherwise deployments sized to the knob could OOM at ~2x).
-            # Tiering: bf16 windows > int8 windows (half the bytes AND DMA
-            # traffic; code-rescored) > uint8 code windows (memory floor).
-            if "decoded_flat" in dc or "decoded_t" in dc:
-                flat_bytes = cap * (d_dim * 2 + 8 * 4)
-            elif "decoded_i8" in dc or "decoded_i8_t" in dc:
-                flat_bytes = cap * (d_dim + 8 * 4)
-            else:
-                flat_bytes = 0
-            budget = self.decoded_cache_budget
-            win_bf16 = (resolved == "bf16"
-                        and flat_bytes + ul["total"] * d_dim * 2 <= budget)
-            win_i8 = (not win_bf16 and self._use_pallas_scan()
-                      and resolved in ("bf16", "int8")
-                      and flat_bytes + ul["total"] * d_dim <= budget)
-            if win_bf16:
+            # gate the COMBINED footprint: the linear replica (cap rows)
+            # already holds its bytes, so the bf16 window replica is only
+            # added if the sum stays inside the budget (otherwise deployments
+            # sized to the knob could OOM at ~2x); else uint8 code windows
+            flat_bytes = cap * (d_dim * 2 + 8 * 4) if "decoded_flat" in dc \
+                else 0
+            if (resolved == "bf16" and flat_bytes + ul["total"] * d_dim * 2
+                    <= self._cache_budget()):
                 codes_g = jnp.asarray(ul["codes_grouped"])
-                dec_g = build_decoded_cache(codes_g, dc["codewords"],
-                                            block=2048 if ul["total"]
-                                            % 2048 == 0 else ul["cap_v"])
-                # padding rows get a large sentinel so the Pallas window
-                # kernel's in-kernel norms dominate any real score (the
-                # XLA paths mask padding via the +inf grouped norms)
-                dc["decoded_g"] = jnp.where((dc["order_g"] < 0)[:, None],
-                                            jnp.bfloat16(1e15), dec_g)
-            elif win_i8:
-                codes_g = jnp.asarray(ul["codes_grouped"])
-                dec_g = build_decoded_cache(codes_g, dc["codewords"],
-                                            block=2048 if ul["total"]
-                                            % 2048 == 0 else ul["cap_v"])
-                dec_i8, dc["i8_scales_g"] = quantize_replica_i8(dec_g)
-                del dec_g
-                # padding is masked gather-free via the per-window member
-                # counts (scalar-prefetched vlen, as in the pq kernel)
-                dc["decoded_g_i8"] = dec_i8
-                dc["vlen_g"] = jnp.asarray(ul["vlen"])
+                dc["decoded_g"] = build_decoded_cache(
+                    codes_g, dc["codewords"],
+                    block=2048 if ul["total"] % 2048 == 0 else ul["cap_v"])
             else:
                 dc["codes_g"] = jnp.asarray(ul["codes_grouped"])
-                dc["vlen_g"] = jnp.asarray(ul["vlen"])
-                if "pallas_cw" not in dc and self._use_pallas_scan():
-                    from rii_tpu.ops.pallas_scan import build_padded_codewords
-                    dc["pallas_cw"] = build_padded_codewords(cw)
             stats["windows_s"] = time.perf_counter() - t0
-        # per-stage breakdown of the last cache build (SIFT1B_SHAPE.md cost
-        # accounting; timings include the H2D each stage dispatches)
+        # per-stage breakdown of the last cache build (timings include the
+        # H2D each stage dispatches)
         self.last_cache_build_stats = stats
         self._dc = dc
         return dc
@@ -1340,8 +1129,7 @@ class Rii:
         fallback family's storage) to the device cache. The union-bucket
         virtual layout serves every IVF query whenever centers exist, so
         this second argsort+gather pass over all N rows is skipped on the
-        normal path (measured ~half the first-query host layout cost at
-        N=32M/nlist=31623) and built only if a fallback is actually hit or a
+        normal path and built only if a fallback is actually hit or a
         caller (tests, benchmarks) asks for it explicitly."""
         if "cap_max" in dc:
             return dc
@@ -1374,7 +1162,7 @@ class Rii:
         """Per-component device-cache footprint in bytes (+ host canonical).
 
         The reference documents its memory model as codes N*M + postings N*4
-        + centers nlist*M bytes (/root/reference/src/rii.h:81-82); the TPU
+        + centers nlist*M bytes (/root/reference/src/rii.h:81-82); this
         engine adds the optional replicas and grouped layouts. The device
         cache is derived state — rebuilt lazily, dropped on mutation.
         """
@@ -1440,8 +1228,7 @@ def estimate_best_threshold_function(e, queries):
     Run on demand (``reconfigure(calibrate=True)``) because each (|S|, method)
     pair compiles a kernel variant; the analytic model is the cheap default.
     Probes are BATCHED — one device dispatch per (|S|, method) timing point
-    instead of a per-query loop, so calibration stays affordable on
-    dispatch-expensive (tunneled/remote) backends.
+    instead of a per-query loop.
     """
     topk = 1
 

@@ -1,9 +1,9 @@
 """Continuous-batching query server over a built Rii engine.
 
-The reference is a library only; a production TPU deployment needs a serving
-loop that (a) coalesces concurrent requests into one device batch — TPU
-throughput comes from batched MXU work, and per-dispatch overhead is high —
-and (b) keeps jit-cache churn bounded by padding to power-of-two buckets
+The reference is a library only; a production GPU deployment needs a
+serving loop that (a) coalesces concurrent requests into one device batch —
+device throughput comes from batched matmul work, and each dispatch has a
+fixed cost — and (b) keeps jit-cache churn bounded by padding to power-of-two buckets
 (which ``Rii.query_batch`` already does).
 
 Design: callers submit from any thread and receive a Future; one group-former

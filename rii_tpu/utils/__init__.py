@@ -2,7 +2,7 @@
 
 from rii_tpu.utils.io import fvecs_read, ivecs_read, bvecs_read_batches
 from rii_tpu.utils.recall import recall_at_r
-from rii_tpu.utils.profiling import trace, measure_rtt, benchmark_queries
+from rii_tpu.utils.profiling import trace, benchmark_queries
 
 __all__ = [
     "fvecs_read",
@@ -10,6 +10,5 @@ __all__ = [
     "bvecs_read_batches",
     "recall_at_r",
     "trace",
-    "measure_rtt",
     "benchmark_queries",
 ]

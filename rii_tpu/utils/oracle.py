@@ -6,7 +6,7 @@ module reproduces the reference's exact walk — probe order, per-list subset
 filter, early stop at exactly L collected candidates
 (/root/reference/src/rii.h:244-326) — in plain NumPy, so tests and the
 recall-parity study (benchmarks/recall_parity.py) can demonstrate that the
-TPU engine's candidate set is a superset: rii-tpu recall >= oracle recall at
+engine's candidate set is a superset: rii-tpu recall >= oracle recall at
 equal L, for full and subset queries.
 
 Semantics implemented (src/rii.h line references):

@@ -1,8 +1,8 @@
-"""Engine-level TPU-path coverage on CPU: the `pallas_interpret` test hook
-forces the exact kernel path graph the accelerator runs (transposed bf16
-replica, transposed int8 replica + rescore, fused uint8 pq scan, masked
-subsets folded into the norms streams) through Pallas interpret mode, and
-compares against the plain CPU engine."""
+"""Engine-level GPU-path coverage on CPU: the `pallas_interpret` test hook
+runs the path the GPU takes (the fused bf16 replica kernel with its exact
+rescore, masked subsets folded into the norms) through Pallas interpret
+mode, and compares against the plain CPU engine. scan_mode="int8" (older
+checkpoints) resolves to the same bf16 path; "pq" keeps the codes only."""
 
 import numpy as np
 import pytest
@@ -16,7 +16,7 @@ def _build(scan_mode, n=6000, d=64, seed=9):
     pq = PQ(M=8, Ks=32).fit(X[:1024], iter=3)
     e = Rii(pq)
     e.scan_mode = scan_mode
-    e.pallas_interpret = True  # force the TPU kernel paths via interpret
+    e.pallas_interpret = True  # run the GPU kernel path via interpret
     e.add_configure(X, nlist=40, iter=3)
     ref = Rii(pq)
     ref.scan_mode = "pq"
@@ -29,9 +29,8 @@ def _build(scan_mode, n=6000, d=64, seed=9):
 def test_interpret_linear_matches_cpu_engine(scan_mode):
     e, ref, X, rng = _build(scan_mode)
     dc = e._ensure_cache()
-    expect = {"bf16": "decoded_t", "int8": "decoded_i8_t",
-              "pq": "pallas_codes_t"}[scan_mode]
-    assert expect in dc, (scan_mode, sorted(dc))
+    assert ("decoded_flat" in dc) == (scan_mode != "pq"), (scan_mode,
+                                                          sorted(dc))
     q = X[:8]
     ids, d = e.query_batch(q, topk=5, method="linear")
     ids_r, d_r = ref.query_batch(q, topk=5, method="linear")
@@ -42,8 +41,7 @@ def test_interpret_linear_matches_cpu_engine(scan_mode):
 
 @pytest.mark.parametrize("scan_mode", ["bf16", "int8"])
 def test_interpret_masked_subset(scan_mode):
-    """Large subsets fold the mask into the replicated norms stream of the
-    transposed kernels."""
+    """Large subsets fold the mask into the norms the kernel reads."""
     e, ref, X, rng = _build(scan_mode)
     tids = np.sort(rng.choice(e.N, 5000, replace=False)).astype(np.int64)
     q = X[:4]

@@ -163,16 +163,17 @@ def test_incremental_add_without_update_invisible_to_ivf():
 
 
 def test_incremental_add_pallas_cache_variants():
-    """The transposed bf16 / int8 / pq pallas caches scatter new rows too
-    (column scatters for the (D, cap) replicas)."""
+    """With the kernel hook on, the bf16 replica (scan_mode "bf16", or
+    "int8" from older checkpoints) and the pq code windows take new rows by
+    O(batch) scatters, and the fused kernel finds them."""
     import pytest as _pytest
     rng = np.random.RandomState(24)
     D = 32
     X1 = rng.random((3000, D)).astype(np.float32)
     X2 = rng.random((150, D)).astype(np.float32)
     pq = PQ(M=4, Ks=32).fit(X1)
-    for mode, key in (("bf16", "decoded_t"), ("int8", "decoded_i8_t"),
-                      ("pq", "pallas_codes_t")):
+    for mode, key in (("bf16", "decoded_flat"), ("int8", "decoded_flat"),
+                      ("pq", "codes_g")):
         e = Rii(pq)
         e.scan_mode = mode
         e.pallas_interpret = True
@@ -183,7 +184,7 @@ def test_incremental_add_pallas_cache_variants():
         assert e._dc is not None, mode
         ids, _ = e.query_batch(X2[:4], topk=3, method="linear")
         hits = np.mean([3000 + i in ids[i] for i in range(4)])
-        assert hits >= 0.75, mode  # int8-class selection can swap near-ties
+        assert hits >= 0.75, mode  # tile-min selection can swap near-ties
 
 
 def test_empty_add_keeps_cache():

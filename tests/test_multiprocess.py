@@ -1,5 +1,5 @@
 """REAL multi-process distributed runtime test: 2 jax.distributed processes
-(Gloo collectives — the DCN-analog transport) x 4 virtual CPU devices each,
+(Gloo collectives — the cross-host transport) x 4 virtual CPU devices each,
 exercising ShardedRii queries (linear / IVF / subset), per-host ingestion
 (put_sharded -> make_array_from_process_local_data) and the distributed
 reconfigure, whose posting lists must be bit-identical to single-device.
@@ -67,7 +67,7 @@ assert sr.engine.posting_lists == e2.posting_lists, "not bit-identical"
 
 # --- 2-D hosts x chips mesh with the HOST axis spanning the two REAL
 # processes (process-major device order => mesh row h is host h's local
-# devices): the staged ICI-then-DCN merge crosses a real process boundary.
+# devices): the staged chip-then-host merge crosses a real process boundary.
 # Parity asserted against the 1-D-mesh run above on the SAME engine state.
 from rii_tpu.parallel import make_mesh_hc
 mesh_hc = make_mesh_hc()  # n_hosts = process_count() = 2, n_chips = 4

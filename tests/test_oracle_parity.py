@@ -93,8 +93,7 @@ def test_exact_probes_cover_f32_walk_on_near_tie_centers():
     eps; bf16 coarse scoring reorders probe RANKS there (measured: 2-7 of the
     f32 top-32 missing at 1024 kmeans-like centroids), so exact lax.top_k
     over bf16 scores could still drop a bucket the reference's f32 walk
-    visits — measured on TPU as exact-mode dominance 0.9938 on uniform N=1M
-    before _coarse_scores gained the f32 exact path."""
+    visits; _coarse_scores scores in f32 in exact mode for this reason."""
     import jax.numpy as jnp
     from rii_tpu.ops.ivf import _coarse_scores, _probe_topk
 

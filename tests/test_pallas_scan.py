@@ -1,250 +1,149 @@
-"""Pallas PQ-scan kernel tests (interpret mode on CPU).
+"""Fused replica-scan kernel tests (Pallas Triton route, interpret mode on CPU).
 
-The kernel contract is per-128-slot-tile (min, argmin) of exact-ADC scores;
-that is tested EXACTLY against a numpy oracle. The end-to-end top-k wrapper is
-exact unless two true top-k fall in one tile, so it is tested at a realistic
-tiles-per-k ratio.
+The kernel contract is the per-128-slot packed (min, argmin) key of the
+scores ``norms - 2 q.dec``; it is tested against a numpy oracle. The top-k
+wrapper is exact unless two true top-k fall in one tile, so it is compared
+with the plain XLA scan (ops/scan.linear_scan_topk_decoded) at a realistic
+tiles-per-k ratio, and with the exact f32 rescore against the ADC oracle.
 """
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from rii_tpu import PQ
 from rii_tpu.models.ivf import code_norms_np
-from rii_tpu.ops.pallas_scan import (
-    pq_scan_topk,
-    pq_scan_tile_minima,
-    prepare_pq_scan_inputs,
-    build_padded_codewords,
+from rii_tpu.ops.decode import build_decoded_cache
+from rii_tpu.ops.replica_scan import (
+    _query_block,
+    kernel_supports,
+    replica_keys,
+    replica_scan_topk,
 )
+from rii_tpu.ops.scan import _TILE, linear_scan_topk_decoded
+from rii_tpu.utils.oracle import query_linear_oracle
 
 
-def _index(n=2000, d=64, m=8, ks=32):
+def _index(n=2000, d=64, m=8, ks=32, cap=2048):
     rng = np.random.RandomState(3)
     x = rng.random((n, d)).astype(np.float32)
     pq = PQ(M=m, Ks=ks).fit(x)
     codes = pq.encode(x)
-    norms = code_norms_np(pq.codewords, codes)
-    return x, pq, codes, norms
+    codes_p = np.zeros((cap, m), np.uint8)
+    codes_p[:n] = codes
+    norms = np.full(cap, np.inf, np.float32)
+    norms[:n] = code_norms_np(pq.codewords, codes)
+    decoded = build_decoded_cache(jnp.asarray(codes_p),
+                                  jnp.asarray(pq.codewords), block=cap)
+    return x, pq, codes_p, norms, decoded
 
 
-def _oracle_scores(q, codes, norms, codewords):
-    """Exact per-code scores WITHOUT ||q||^2, matching the kernel's bf16 table:
-    norms - 2 * q . decode_bf16(code)."""
-    m, ks, ds = codewords.shape
-    cw16 = codewords.astype(np.float32)  # oracle in f32; tolerance covers bf16
-    dec = cw16[np.arange(m)[None, :], codes.astype(int)].reshape(len(codes), -1)
-    return norms - 2.0 * dec @ q
+def _unpack(keys):
+    bits = np.asarray(keys).view(np.int32)
+    vmin = (bits & ~0x7F).view(np.float32)
+    lane = bits & 0x7F
+    return vmin, np.arange(keys.shape[1])[None, :] * _TILE + lane
 
 
-def test_tile_minima_match_oracle():
-    x, pq, codes, norms = _index()
-    n = len(codes)
-    queries = jnp.asarray(x[:4])
-    codes_t, norms2d, cwt = prepare_pq_scan_inputs(codes, norms, pq.codewords,
-                                                   blk=1024)
-    vmin, amin = pq_scan_tile_minima(queries, codes_t, norms2d, cwt, blk=1024,
-                                     interpret=True)
-    vmin, amin = np.asarray(vmin), np.asarray(amin)
-    cap = codes_t.shape[0]
-    nt = cap // 128
-    for qi in range(4):
-        s = np.full(cap, np.inf, np.float32)
-        s[:n] = _oracle_scores(x[qi], codes, norms, pq.codewords)
-        st = s.reshape(nt, 128)
-        ref_min = st.min(1)
-        ref_arg = st.argmin(1) + np.arange(nt) * 128
-        finite = np.isfinite(ref_min)
-        np.testing.assert_allclose(vmin[qi][finite], ref_min[finite],
-                                   rtol=2e-2, atol=2e-2)
-        # argmins must point at slots whose oracle score is within bf16 noise
-        # of the tile min (bf16 rounding can swap near-ties)
-        picked = s[np.minimum(amin[qi][finite], cap - 1)]
-        np.testing.assert_allclose(picked, ref_min[finite], rtol=2e-2, atol=2e-2)
-        assert (~finite | (amin[qi] < n) | (vmin[qi] == np.inf)).all()
+@pytest.mark.parametrize("qn", [1, 8, 128, 600])
+def test_replica_keys_match_tile_oracle(qn):
+    """Each key holds its tile's min score (packed-key precision) and points
+    at a slot whose score is that minimum up to bf16 near-ties."""
+    x, pq, codes_p, norms, decoded = _index()
+    rng = np.random.RandomState(qn)
+    q = rng.random((qn, x.shape[1])).astype(np.float32)
+    keys = replica_keys(jnp.asarray(q), decoded, jnp.asarray(norms),
+                        interpret=True)
+    assert keys.shape == (qn, len(norms) // _TILE)
+    vmin, amin = _unpack(keys)
+    dec = np.asarray(decoded, np.float32)
+    qb = np.asarray(jnp.asarray(q).astype(jnp.bfloat16), np.float32)
+    s = norms[None, :] - 2.0 * qb @ dec.T  # (Q, cap), +inf on padding
+    ref = s.reshape(qn, -1, _TILE).min(axis=2)
+    fin = np.isfinite(ref)
+    np.testing.assert_allclose(vmin[fin], ref[fin], rtol=1e-4, atol=1e-4)
+    picked = np.take_along_axis(s, amin, axis=1)
+    np.testing.assert_allclose(picked[fin], ref[fin], rtol=1e-4, atol=1e-4)
+    assert (vmin[~fin] >= 2.9e38).all()  # padding tiles stay "infinite"
 
 
-def test_pq_scan_topk_end_to_end():
-    # realistic ratio: topk=2 over 16 tiles -> collisions rare; top-1 exact
-    x, pq, codes, norms = _index()
-    queries = jnp.asarray(x[:8])
-    codes_t, norms2d, cwt = prepare_pq_scan_inputs(codes, norms, pq.codewords,
-                                                   blk=1024)
-    d_p, i_p = pq_scan_topk(queries, codes_t, norms2d, cwt, topk=2, blk=1024,
-                            interpret=True)
-    d_p, i_p = np.asarray(d_p), np.asarray(i_p)
-    for qi in range(8):
-        s = _oracle_scores(x[qi], codes, norms, pq.codewords) + (x[qi] ** 2).sum()
-        assert i_p[qi, 0] == int(np.argmin(s)), (qi, i_p[qi], np.argmin(s))
-        np.testing.assert_allclose(d_p[qi, 0], s.min(), rtol=2e-2, atol=2e-2)
-    assert np.all(np.diff(d_p, axis=1) >= -1e-3)
+@pytest.mark.parametrize("qn", [1, 8, 128, 600])
+@pytest.mark.parametrize("topk", [1, 10])
+def test_replica_scan_topk_matches_xla(qn, topk):
+    """Kernel and plain XLA scan agree: same ids up to tile collisions and
+    near-ties, distances within the packed-key class."""
+    x, pq, codes_p, norms, decoded = _index(n=8000, cap=8192)
+    q = jnp.asarray(x[:qn] + 0.01)
+    nr = jnp.asarray(norms)
+    d_k, i_k = replica_scan_topk(q, decoded, nr, topk=topk,
+                                 recall_target=None, interpret=True)
+    d_x, i_x = linear_scan_topk_decoded(q, decoded, nr, topk=topk,
+                                        block=2048)
+    d_k, i_k, d_x, i_x = map(np.asarray, (d_k, i_k, d_x, i_x))
+    assert d_k.shape == (qn, topk) and i_k.shape == (qn, topk)
+    assert (i_k[:, 0] == i_x[:, 0]).mean() >= 0.97
+    np.testing.assert_allclose(d_k[:, 0], d_x[:, 0], rtol=1e-3, atol=1e-3)
+    # a kernel rank can only be worse than the exact scan's, never better
+    assert (d_k >= d_x - 1e-3 * np.abs(d_x) - 1e-3).all()
+    assert (np.diff(d_k, axis=1) >= 0).all()
 
 
-def test_pq_scan_padding_excluded():
-    x, pq, codes, norms = _index(n=300)
-    queries = jnp.asarray(x[:2])
-    codes_t, norms2d, cwt = prepare_pq_scan_inputs(codes, norms, pq.codewords,
-                                                   blk=1024)
-    d_p, i_p = pq_scan_topk(queries, codes_t, norms2d, cwt, topk=2, blk=1024,
-                            interpret=True)
-    i_p = np.asarray(i_p)
-    assert (i_p < 300).all() and (i_p >= 0).all()
+@pytest.mark.parametrize("mask", ["none", "prefix", "random"])
+def test_replica_scan_padding_and_masking(mask):
+    """Padding slots are never selected; a subset mask folded into the norms
+    as +inf keeps every result inside the subset."""
+    x, pq, codes_p, norms, decoded = _index(n=300, cap=1024)
+    keep = np.arange(len(norms)) < 300
+    if mask == "prefix":
+        keep &= np.arange(len(norms)) >= 150
+    elif mask == "random":
+        keep &= np.random.RandomState(5).random(len(norms)) < 0.3
+    nr = np.where(keep, norms, np.inf).astype(np.float32)
+    _, ids = replica_scan_topk(jnp.asarray(x[:8]), decoded, jnp.asarray(nr),
+                               topk=2, interpret=True)
+    ids = np.asarray(ids)
+    assert (ids >= 0).all()
+    assert keep[ids].all()
 
 
-def test_replica_scan_matches_pq_scan():
-    from rii_tpu.ops.pallas_scan import replica_scan_topk
-    from rii_tpu.ops.decode import build_decoded_cache
-    x, pq, codes, norms = _index()
-    queries = jnp.asarray(x[:4])
-    codes_p, norms_col, cwp = prepare_pq_scan_inputs(codes, norms, pq.codewords,
-                                                     blk=2048)
-    decoded = build_decoded_cache(codes_p, jnp.asarray(pq.codewords), block=2048)
-    d_r, i_r = replica_scan_topk(queries, decoded, norms_col, topk=2, blk=2048,
-                                 interpret=True, recall_target=None)
-    d_p, i_p = pq_scan_topk(queries, codes_p, norms_col, cwp, topk=2, blk=1024,
-                            interpret=True)
-    np.testing.assert_array_equal(np.asarray(i_r), np.asarray(i_p))
-    np.testing.assert_allclose(np.asarray(d_r), np.asarray(d_p), rtol=2e-2,
-                               atol=2e-2)
+@pytest.mark.parametrize("qn", [1, 16])
+def test_replica_scan_exact_rescore_matches_oracle(qn):
+    """With the codes, returned distances are exact f32 ADC and the top-1 is
+    the oracle's."""
+    x, pq, codes_p, norms, decoded = _index()
+    n = 2000
+    q = x[:qn] + 0.01
+    d, i = replica_scan_topk(jnp.asarray(q), decoded, jnp.asarray(norms),
+                             topk=5, codes=jnp.asarray(codes_p),
+                             codewords=jnp.asarray(pq.codewords),
+                             interpret=True)
+    d, i = np.asarray(d), np.asarray(i)
+    for r in range(qn):
+        ids_o, d_o = query_linear_oracle(q[r], 5, pq.codewords, codes_p[:n])
+        assert i[r, 0] == ids_o[0]
+        np.testing.assert_allclose(d[r, 0], d_o[0], rtol=1e-4)
+        own = query_linear_oracle(q[r], n, pq.codewords, codes_p[:n])
+        lut = dict(zip(own[0].tolist(), own[1].tolist()))
+        np.testing.assert_allclose(d[r], [lut[k] for k in i[r]], rtol=1e-4)
 
 
-def test_transposed_replica_scan_matches_row_replica():
-    """The (D, cap) transposed kernel (the small-Q roofline path) must agree
-    with the row-major replica kernel: same argmins, distances within the
-    packed-key 2^-16 class."""
-    from rii_tpu.ops.pallas_scan import (
-        prepare_replica_t, replica_scan_topk, replica_scan_topk_t)
-    from rii_tpu.ops.decode import build_decoded_cache
-    x, pq, codes, norms = _index()
-    queries = jnp.asarray(x[:16])
-    codes_p, norms_col, _ = prepare_pq_scan_inputs(codes, norms, pq.codewords,
-                                                   blk=2048)
-    decoded = build_decoded_cache(codes_p, jnp.asarray(pq.codewords), block=2048)
-    dec_t, norms_rep = prepare_replica_t(decoded, norms_col[:, 0])
-    d_t, i_t = replica_scan_topk_t(queries, dec_t, norms_rep, topk=3,
-                                   blk=2048, interpret=True,
-                                   recall_target=None)
-    d_r, i_r = replica_scan_topk(queries, decoded, norms_col, topk=3, blk=2048,
-                                 interpret=True, recall_target=None,
-                                 packed=False)
-    np.testing.assert_allclose(np.asarray(d_t), np.asarray(d_r), rtol=1e-4,
-                               atol=1e-4)
-    assert (np.asarray(i_t) == np.asarray(i_r)).mean() > 0.95  # ties only
+@pytest.mark.parametrize("d,ok", [(8, False), (16, True), (96, False),
+                                  (128, True), (200, False), (256, True)])
+def test_kernel_supports_power_of_two_width(d, ok):
+    assert kernel_supports(d) is ok
 
 
-def test_tn_tile_minima_matches_nn():
-    """The large-Q TN kernel must produce the same tile minima as the NN
-    kernel (identical math, different MXU orientation)."""
-    from rii_tpu.ops.pallas_scan import (
-        prepare_replica_t,
-        replica_scan_tile_minima_t,
-        replica_scan_tile_minima_tn,
-    )
-    from rii_tpu.ops.decode import build_decoded_cache
-    x, pq, codes, norms = _index()
-    queries = jnp.asarray(x[:16])
-    codes_p, norms_col, _ = prepare_pq_scan_inputs(codes, norms, pq.codewords,
-                                                   blk=2048)
-    decoded = build_decoded_cache(codes_p, jnp.asarray(pq.codewords), block=2048)
-    dec_t, norms_rep = prepare_replica_t(decoded, norms_col[:, 0])
-    v_nn, a_nn = replica_scan_tile_minima_t(queries, dec_t, norms_rep,
-                                            blk=2048, interpret=True)
-    v_tn, a_tn = replica_scan_tile_minima_tn(queries, dec_t, norms_rep,
-                                             interpret=True)
-    np.testing.assert_allclose(np.asarray(v_tn), np.asarray(v_nn),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(a_tn), np.asarray(a_nn))
-
-
-def test_transposed_replica_padding_and_masking():
-    from rii_tpu.ops.pallas_scan import prepare_replica_t, replica_scan_topk_t
-    from rii_tpu.ops.decode import build_decoded_cache
-    x, pq, codes, norms = _index(n=300)
-    queries = jnp.asarray(x[:8])
-    codes_p, norms_col, _ = prepare_pq_scan_inputs(codes, norms, pq.codewords,
-                                                   blk=1024)
-    decoded = build_decoded_cache(codes_p, jnp.asarray(pq.codewords), block=1024)
-    dec_t, norms_rep = prepare_replica_t(decoded, norms_col[:, 0])
-    _, i_t = replica_scan_topk_t(queries, dec_t, norms_rep, topk=2, blk=1024,
-                                 interpret=True)
-    i_t = np.asarray(i_t)
-    assert (i_t < 300).all() and (i_t >= 0).all()  # padding never selected
-    # subset mask folded into the norms stream
-    norms_m = np.asarray(norms_col[:, 0]).copy()
-    norms_m[:150] = np.inf  # exclude the first 150 ids
-    nr_m = jnp.asarray(norms_m)[None, :]
-    _, i_m = replica_scan_topk_t(queries, dec_t, jnp.asarray(nr_m), topk=2,
-                                 blk=1024, interpret=True)
-    i_m = np.asarray(i_m)
-    assert ((i_m >= 150) & (i_m < 300)).all()
-
-
-def test_i8_replica_scan_rescored_matches_exact():
-    from rii_tpu.ops.pallas_scan import (
-        replica_i8_scan_topk, quantize_replica_i8)
-    from rii_tpu.ops.decode import build_decoded_cache
-    x, pq, codes, norms = _index()
-    queries = jnp.asarray(x[:4])
-    codes_p, norms_col, cwp = prepare_pq_scan_inputs(codes, norms, pq.codewords,
-                                                     blk=1024)
-    decoded = build_decoded_cache(codes_p, jnp.asarray(pq.codewords), block=1024)
-    dec_i8, scales = quantize_replica_i8(decoded)
-    d_i, i_i = replica_i8_scan_topk(queries, dec_i8, scales, norms_col,
-                                    codes_p, jnp.asarray(pq.codewords),
-                                    topk=2, blk=1024, interpret=True,
-                                    recall_target=None, overfetch=4)
-    d_i, i_i = np.asarray(d_i), np.asarray(i_i)
-    # rescored top-1 must equal the exact-ADC oracle's
-    for qi in range(4):
-        s = _oracle_scores(x[qi], codes, norms, pq.codewords) + (x[qi] ** 2).sum()
-        assert i_i[qi, 0] == int(np.argmin(s)), (qi, i_i[qi], np.argmin(s))
-        np.testing.assert_allclose(d_i[qi, 0], s.min(), rtol=2e-2, atol=2e-2)
-    assert np.all(np.diff(d_i, axis=1) >= -1e-3)
-
-
-def test_i8_transposed_scan_rescored_matches_exact():
-    from rii_tpu.ops.pallas_scan import (
-        prepare_replica_t, quantize_replica_i8, replica_i8_scan_topk_t)
-    from rii_tpu.ops.decode import build_decoded_cache
-    x, pq, codes, norms = _index()
-    queries = jnp.asarray(x[:8])
-    codes_p, norms_col, _ = prepare_pq_scan_inputs(codes, norms, pq.codewords,
-                                                   blk=1024)
-    decoded = build_decoded_cache(codes_p, jnp.asarray(pq.codewords), block=1024)
-    dec_i8, scales = quantize_replica_i8(decoded)
-    dec_i8_t = jnp.transpose(dec_i8)
-    _, norms_rep = prepare_replica_t(decoded, norms_col[:, 0])
-    d_i, i_i = replica_i8_scan_topk_t(queries, dec_i8_t, scales, norms_rep,
-                                      codes_p, jnp.asarray(pq.codewords),
-                                      topk=2, interpret=True,
-                                      recall_target=None, overfetch=4)
-    d_i, i_i = np.asarray(d_i), np.asarray(i_i)
-    for qi in range(8):
-        s = _oracle_scores(x[qi], codes, norms, pq.codewords) + (x[qi] ** 2).sum()
-        assert i_i[qi, 0] == int(np.argmin(s)), (qi, i_i[qi], np.argmin(s))
-        np.testing.assert_allclose(d_i[qi, 0], s.min(), rtol=2e-2, atol=2e-2)
-    assert np.all(np.diff(d_i, axis=1) >= -1e-3)
-    assert (i_i >= 0).all() and (i_i < len(codes)).all()
-
-
-def test_padded_codewords_decode_identity():
-    _, pq, codes, _ = _index(n=128)
-    cwp = np.asarray(build_padded_codewords(pq.codewords), dtype=np.float32)
-    m, ks, ds = pq.codewords.shape
-    dec = np.zeros(m * ds, np.float32)
-    for mm in range(m):
-        dec += cwp[mm, codes[0, mm]]
-    expect = pq.codewords[np.arange(m), codes[0].astype(int)].reshape(-1)
-    np.testing.assert_allclose(dec, expect, rtol=1e-2, atol=1e-2)  # bf16 table
+@pytest.mark.parametrize("qn,bq", [(1, 16), (16, 16), (17, 32), (100, 128),
+                                   (1024, 128)])
+def test_query_block_choice(qn, bq):
+    assert _query_block(qn) == bq
 
 
 def test_merge_packed_keys_min8_prereduce_big_q():
     """Big-Q merge: the min-8 pre-reduce (3 extra index bits) must return the
     exact top-k when the true top-k occupy distinct 1024-slot groups, and the
     packed id reconstruction (group, column, lane) must be exact."""
-    import jax.numpy as jnp
-    from jax import lax
-    from rii_tpu.ops.pallas_scan import _merge_packed_keys, _TILE
+    from rii_tpu.ops.scan import _merge_packed_keys
 
     rng = np.random.RandomState(3)
     qn, nt, topk = 512, 4096, 10  # nt>=4096 + qn>=512 triggers the pre-reduce

@@ -63,7 +63,7 @@ def _oracle_fit(codewords, codes, k, iters, seed):
 
 def test_symmetric_distance_equals_decoded_l2():
     """SymmetricDistance(c1, c2) == ||decode(c1) - decode(c2)||^2 (the identity
-    the whole TPU re-design rests on)."""
+    the whole decoded-domain design rests on)."""
     cw, codes = _fixture()
     dm = _distance_matrices(cw)
     m = cw.shape[0]

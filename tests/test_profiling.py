@@ -6,7 +6,7 @@ import os
 import numpy as np
 
 from rii_tpu import PQ, Rii
-from rii_tpu.utils.profiling import benchmark_queries, measure_rtt, trace
+from rii_tpu.utils.profiling import benchmark_queries, trace
 
 
 def _engine():
@@ -16,10 +16,6 @@ def _engine():
     e = Rii(pq)
     e.add_configure(X, nlist=20, iter=2)
     return e, X
-
-
-def test_measure_rtt_positive():
-    assert measure_rtt(reps=2) > 0
 
 
 def test_benchmark_queries_reports_qps_and_recall():

@@ -72,7 +72,7 @@ def test_v2_layout_adoption_identical_cache(tmp_path):
     np.testing.assert_array_equal(ids1, ids2)
     np.testing.assert_allclose(d1, d2, rtol=1e-6)
     dc1, dc2 = e1._ensure_cache(), e2._ensure_cache()
-    for key in ("order_g", "norms_g", "vlen_g", "codes_flat", "norms_flat"):
+    for key in ("order_g", "norms_g", "codes_g", "codes_flat", "norms_flat"):
         if key in dc1:
             np.testing.assert_array_equal(np.asarray(dc1[key]),
                                           np.asarray(dc2[key]))

@@ -150,9 +150,9 @@ def test_query_server_over_sharded_engine(engine):
         fut = srv.submit(X[7], topk=5)
         ids, dists = fut.result(timeout=120)
     assert ids.shape == (5,)
-    # the server submits with method='auto' (may route to IVF); distances
-    # agree at f32-rounding level with the direct linear scan
-    ids_d, dists_d = sr.query_batch(X[7:8], topk=5)
+    # the server submits with method='auto' (a single query routes to the
+    # IVF probe union here): the same routing called directly agrees
+    ids_d, dists_d = sr.query_batch(X[7:8], topk=5, method="auto")
     np.testing.assert_array_equal(ids, ids_d[0])
     np.testing.assert_allclose(dists, dists_d[0], rtol=1e-4)
 
